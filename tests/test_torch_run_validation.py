@@ -1,0 +1,129 @@
+"""The port's gate entry point (``tpu_operator_torch.workloads.
+run_validation``) against the reference's contract: check names, JSON lines,
+the device-count short circuit, the budget skip, and a drop-box and flight
+record the unchanged validator reads.  Runs on the CPU via TORCH_DEVICE=cpu.
+"""
+
+import json
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from tpu_operator.validator import status as jstatus  # noqa: E402
+from tpu_operator.workloads import run_validation as jrv  # noqa: E402
+from tpu_operator_torch.validator import status as tstatus  # noqa: E402
+from tpu_operator_torch.workloads import run_validation as rv  # noqa: E402
+
+
+@pytest.fixture
+def cpu_gate(validation_root, monkeypatch):
+    monkeypatch.setenv("TORCH_DEVICE", "cpu")
+    monkeypatch.setenv("ALLREDUCE_SIZE_MB", "2")
+    for var in ("WORKLOAD_CHECKS", "EXPECTED_DEVICES", "WORKLOAD_BUDGET_S",
+                "WORKLOAD_START_BARRIER", "RESULTS_SCOPE", "TPU_METRICS_PUSH_URL",
+                "TPU_TRACEPARENT", "DEVICE_COUNT_GATE_BACKENDS"):
+        monkeypatch.delenv(var, raising=False)
+    return validation_root
+
+
+def _lines(capsys) -> list:
+    return [json.loads(line) for line in capsys.readouterr().out.splitlines()
+            if line.startswith("{")]
+
+
+def test_check_names_match_reference():
+    assert set(rv.check_runners()) == jrv.known_checks()
+    assert rv.known_checks() == jrv.known_checks()
+
+
+def test_gate_passes_on_cpu(cpu_gate, monkeypatch, capsys):
+    monkeypatch.setenv("WORKLOAD_CHECKS", "vector-add,allreduce")
+    monkeypatch.setenv("TPU_TRACEPARENT", "abc123-def456")
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["vector-add", "allreduce"]
+    assert all(line["ok"] and line["backend"] == "cpu" for line in lines)
+    # the reference's reader sees the port's drop-box and flight record
+    results = jstatus.read_workload_results()
+    assert set(results["checks"]) == {"vector-add", "allreduce"}
+    samples = jstatus.read_flight_record()
+    assert {s["check"] for s in samples} == {"vector-add", "allreduce"}
+    assert all(s["trace_id"] == "abc123" and s["span_id"] for s in samples)
+    assert {s["phase"] for s in samples} >= {"compile", "step", "step-window", "result"}
+
+
+def test_default_checks_are_the_gate(cpu_gate, capsys):
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["vector-add", "allreduce", "burn-in"]
+    burn = lines[-1]
+    assert burn["ok"] and burn["mesh"] == {"dp": 1, "mp": 1} and len(burn["losses"]) == 3
+
+
+def test_expected_devices_short_circuits(cpu_gate, monkeypatch, capsys):
+    monkeypatch.setenv("WORKLOAD_CHECKS", "vector-add")
+    monkeypatch.setenv("DEVICE_COUNT_GATE_BACKENDS", "cpu")
+    monkeypatch.setenv("EXPECTED_DEVICES", "1")
+    assert rv.main() == 0  # one CPU rank: the count matches, checks proceed
+    assert [line["check"] for line in _lines(capsys)] == ["devices", "vector-add"]
+
+    monkeypatch.setenv("EXPECTED_DEVICES", "4")
+    assert rv.main() == 1
+    lines = _lines(capsys)
+    # ONLY the devices line: the remaining checks would measure the wrong
+    # topology and bury the real failure
+    assert [line["check"] for line in lines] == ["devices"] and not lines[0]["ok"]
+    assert tstatus.read_workload_results()["checks"]["devices"]["expected"] == 4
+
+    monkeypatch.setenv("EXPECTED_DEVICES", "two")
+    assert rv.main() == 1
+    assert "malformed" in _lines(capsys)[0]["error"]
+
+
+def test_budget_skips_but_unknown_names_still_fail(cpu_gate, monkeypatch, capsys):
+    monkeypatch.setenv("WORKLOAD_BUDGET_S", "1e-9")
+    monkeypatch.setenv("WORKLOAD_CHECKS", "vector-add,no-such-check")
+    assert rv.main() == 1
+    skipped, unknown = _lines(capsys)
+    assert skipped["ok"] and "budget" in skipped["skipped"]
+    assert not unknown["ok"] and unknown["error"] == "unknown check no-such-check"
+
+
+@pytest.mark.parametrize("check", ["matmul", "serving"])
+def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
+    monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")
+    assert rv.main() == 1
+    ok_line, failed = _lines(capsys)
+    assert ok_line["ok"]
+    assert failed["check"] == check and not failed["ok"]
+    assert failed["error"] == rv.NOT_PORTED and "skipped" not in failed
+
+
+def test_start_barrier_times_out_alone(cpu_gate, monkeypatch, capsys, tmp_path):
+    monkeypatch.setenv("WORKLOAD_START_BARRIER", str(tmp_path / "barrier"))
+    monkeypatch.setenv("WORKLOAD_BARRIER_COUNT", "2")
+    monkeypatch.setenv("WORKLOAD_BARRIER_TIMEOUT_S", "0.2")
+    assert rv.main() == 1
+    (line,) = _lines(capsys)
+    assert line["check"] == "start-barrier" and "1/2" in line["error"]
+
+
+@pytest.mark.parametrize("scope", ["", "perf"])
+def test_dropbox_paths_match_reference(validation_root, scope):
+    assert tstatus.validation_dir() == jstatus.validation_dir()
+    assert tstatus.workload_results_path(scope) == jstatus.workload_results_path(scope)
+    assert tstatus.flight_record_path(scope) == jstatus.flight_record_path(scope)
+
+
+def test_dropbox_default_paths_match_reference(monkeypatch):
+    monkeypatch.delenv("TPU_VALIDATION_ROOT", raising=False)
+    assert tstatus.workload_results_path() == jstatus.workload_results_path()
+    assert tstatus.flight_record_path() == jstatus.flight_record_path()
+
+
+def test_results_round_trip_both_ways(validation_root):
+    tstatus.write_workload_results({"checks": {"a": {"ok": True}}}, scope="perf")
+    assert jstatus.read_workload_results("perf")["checks"] == {"a": {"ok": True}}
+    jstatus.write_workload_results({"checks": {"b": {"ok": False}}})
+    assert tstatus.read_workload_results()["checks"] == {"b": {"ok": False}}

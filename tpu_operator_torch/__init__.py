@@ -1,0 +1,23 @@
+"""PyTorch/CUDA port of the operator's compute payloads, for NVIDIA Hopper.
+
+A second package beside ``tpu_operator``: the JAX package stays the
+reference, and each module here is held against its JAX counterpart by a
+parity test on identical numpy inputs.  Nothing in this package imports
+``jax`` or ``tpu_operator``; where a JAX-free module of the reference is
+needed, the port keeps its own copy of the part it uses.
+
+Layout (mirrors ``tpu_operator/``):
+
+- ``workloads/``  — the readiness gate: ``run_validation`` and the checks it
+  runs (``collectives``), the local multi-rank launcher (``_ranks``) and the
+  shared timing rules (``timing``)
+- ``kernels/``    — the hand-written CUDA kernels, their plain PyTorch
+  versions, and the ``nvcc`` + ``ctypes`` build (``_build``); sources live in
+  ``csrc/``
+- ``obs/``, ``validator/``, ``consts`` — own copies of the trace spans, the
+  flight recorder and the drop-box paths the gate writes through
+
+Entry points run on ``cuda`` unless the caller asks for the CPU
+(``TORCH_DEVICE=cpu``, or a ``device`` argument); with no card and no such
+request they raise instead of falling back.
+"""

@@ -1,0 +1,148 @@
+"""Local multi-rank launcher: one process per local device.
+
+The reference gate is one JAX program over all local chips (``shard_map``);
+the port runs one rank per card instead, joined by ``torch.distributed``:
+NCCL on the cards, gloo on the CPU (where the tests run four ranks).
+
+- Ranks start from a fresh interpreter (``spawn``), so the launcher works
+  from a process that already holds CUDA or threads.
+- Rendezvous is a ``FileStore`` in a new directory under the caller's temp
+  dir: parallel callers (pytest-xdist workers, concurrent gates) never share
+  a port or a path.
+- Every rank's process group times out after ``timeout_s``, and the parent
+  stops waiting at the same deadline and kills what is left: a hung rank
+  fails the check instead of hanging the pod.
+- Rank 0's return value is the result; its flight samples come back with it
+  and are replayed into the caller's recorder.
+"""
+
+from __future__ import annotations
+
+import datetime
+import json
+import multiprocessing
+import os
+import pickle
+import shutil
+import tempfile
+import time
+import traceback
+from multiprocessing.connection import wait
+
+import torch
+
+from tpu_operator_torch.obs import flight
+
+
+def _rank_main(fn, rank: int, world_size: int, device_type: str,
+               workdir: str, timeout_s: float) -> None:
+    import torch.distributed as dist
+
+    out = os.path.join(workdir, f"rank{rank}.json")
+    try:
+        # written by the parent that spawned this rank, just before
+        with open(os.path.join(workdir, "kwargs.pkl"), "rb") as f:
+            kwargs = pickle.load(f)
+        if device_type == "cuda":
+            torch.cuda.set_device(rank)
+            device = torch.device("cuda", rank)
+            backend = "nccl"
+        else:
+            # CPU ranks share the host's cores: one thread each
+            torch.set_num_threads(1)
+            device = torch.device("cpu")
+            backend = "gloo"
+        dist.init_process_group(
+            backend,
+            init_method="file://" + os.path.join(workdir, "store"),
+            world_size=world_size,
+            rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s),
+        )
+        try:
+            recorder = flight.FlightRecorder()  # in memory; shipped back below
+            with flight.activate(recorder):
+                result = fn(rank, world_size, device, **kwargs)
+            payload = {"result": result if rank == 0 else None,
+                       "samples": recorder.samples if rank == 0 else []}
+        finally:
+            dist.destroy_process_group()
+    except BaseException:  # noqa: BLE001 — reported to the parent, then re-raised
+        payload = {"error": traceback.format_exc()[-4000:]}
+        _write(out, payload)
+        raise
+    _write(out, payload)
+
+
+def _write(path: str, payload: dict) -> None:
+    with open(path + ".tmp", "w") as f:
+        json.dump(payload, f)
+    os.replace(path + ".tmp", path)
+
+
+def run(fn, world_size: int, device_type: str, timeout_s: float = 300.0, **kwargs) -> dict:
+    """Run ``fn(rank, world_size, device, **kwargs)`` on ``world_size`` local
+    ranks and return rank 0's result (a JSON-serializable dict).  ``fn`` must
+    be a module-level function: it is sent to the ranks by import path.
+    Raises RuntimeError when a rank fails or misses the deadline."""
+    if device_type == "cuda" and world_size > torch.cuda.device_count():
+        raise RuntimeError(
+            f"{world_size} ranks asked for but {torch.cuda.device_count()} cards visible"
+        )
+    ctx = multiprocessing.get_context("spawn")
+    workdir = tempfile.mkdtemp(prefix="tpu-ranks-")
+    # the arguments go by file: through the spawn pipe, a payload above the
+    # pipe's buffer holds each start() until that child has imported its
+    # modules, which serializes the ranks' start-up
+    with open(os.path.join(workdir, "kwargs.pkl"), "wb") as f:
+        pickle.dump(kwargs, f)
+    procs = [
+        ctx.Process(
+            target=_rank_main,
+            args=(fn, rank, world_size, device_type, workdir, timeout_s),
+            name=f"rank{rank}",
+            daemon=True,
+        )
+        for rank in range(world_size)
+    ]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout_s + 30.0  # + interpreter start
+        pending = list(procs)
+        # wait for every rank, but stop at the first failure: the others
+        # would otherwise sit in a collective until their own timeout
+        while pending and time.monotonic() < deadline:
+            wait([p.sentinel for p in pending], deadline - time.monotonic())
+            pending = [p for p in pending if p.is_alive()]
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+        stopped = [p.name for p in pending]
+        for p in pending:
+            p.kill()
+            p.join(5.0)
+        errors = []
+        payloads = []
+        for rank, p in enumerate(procs):
+            try:
+                with open(os.path.join(workdir, f"rank{rank}.json")) as f:
+                    payloads.append(json.load(f))
+            except (OSError, json.JSONDecodeError):
+                payloads.append({})
+            if "error" in payloads[-1]:
+                errors.append(f"rank {rank}: {payloads[-1]['error']}")
+            elif p.exitcode != 0 and p.name not in stopped:
+                errors.append(f"rank {rank}: exit code {p.exitcode}")
+        if stopped:
+            errors.insert(0, (
+                f"{', '.join(stopped)} stopped after another rank failed" if errors
+                else f"{', '.join(stopped)} did not finish within {timeout_s:g}s"
+            ))
+        if errors:
+            raise RuntimeError(
+                f"{world_size}-rank {device_type} run failed:\n" + "\n".join(errors)
+            )
+        flight.replay(payloads[0]["samples"])
+        return payloads[0]["result"]
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)

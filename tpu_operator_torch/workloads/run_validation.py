@@ -1,0 +1,180 @@
+"""Workload-pod entry point of the readiness gate on PyTorch/CUDA:
+``python -m tpu_operator_torch.workloads.run_validation``.
+
+Same contract as ``tpu_operator/workloads/run_validation.py``: exits 0 iff
+every requested check passes, prints one JSON line per check, records the
+flight samples and writes the drop-box the validator reads back.
+
+Env (as the reference, plus ``TORCH_DEVICE``):
+- ``WORKLOAD_CHECKS``: comma list of check names (default
+  ``vector-add,allreduce,burn-in``); the names are the reference's 18, and
+  a check not yet ported fails with an error saying so
+- ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
+  the gate needs a card and fails without one
+- ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
+  short-circuits the remaining checks
+- ``ALLREDUCE_SIZE_MB`` / ``ALLREDUCE_MIN_GBPS``, ``BURN_IN_STEPS`` /
+  ``BURN_IN_SEED``: check knobs
+- ``WORKLOAD_BUDGET_S``: stop STARTING new checks past this many seconds
+  (skipped checks are recorded as skipped, not failed)
+- ``WORKLOAD_START_BARRIER`` / ``WORKLOAD_BARRIER_COUNT`` /
+  ``WORKLOAD_BARRIER_TIMEOUT_S``: rendezvous dir + member count for
+  concurrent runs
+- ``RESULTS_SCOPE``: drop-box scope
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+NOT_PORTED = "not yet ported to tpu_operator_torch"
+
+# the reference's checks this port does not run yet, in its dispatch order
+_UNPORTED = (
+    "transformer", "transformer-pp", "train", "matmul", "ring-attention",
+    "ulysses", "moe", "longctx", "decode", "pipeline", "ring", "hbm",
+    "hbm-dma", "warm-pool", "serving",
+)
+
+
+def _not_ported() -> dict:
+    return {"ok": False, "error": NOT_PORTED}
+
+
+def check_runners() -> dict:
+    """Check name → zero-arg runner, the one source of truth for the
+    dispatch AND the valid-name set (the same 18 names as the reference)."""
+    from tpu_operator_torch.workloads import collectives
+
+    def allreduce():
+        return collectives.apply_allreduce_gate(
+            collectives.allreduce_benchmark(
+                size_mb=float(os.environ.get("ALLREDUCE_SIZE_MB", "64"))
+            ),
+            float(os.environ.get("ALLREDUCE_MIN_GBPS", "0")),
+        )
+
+    def burn_in():
+        return collectives.burn_in(
+            steps=int(os.environ.get("BURN_IN_STEPS", "3") or 3),
+            seed=int(os.environ.get("BURN_IN_SEED", "0") or 0),
+        )
+
+    return {
+        "vector-add": collectives.vector_add,
+        "allreduce": allreduce,
+        "burn-in": burn_in,
+        **{name: _not_ported for name in _UNPORTED},
+    }
+
+
+def known_checks() -> set:
+    """Valid check names (derived from the dispatch — cannot drift)."""
+    return set(check_runners())
+
+
+def _start_barrier() -> bool:
+    """Announce this process in WORKLOAD_START_BARRIER and hold until every
+    member is present; False (after printing why) on timeout."""
+    barrier_dir = os.environ.get("WORKLOAD_START_BARRIER", "")
+    if not barrier_dir:
+        return True
+    count = int(os.environ.get("WORKLOAD_BARRIER_COUNT", "1") or 1)
+    budget = float(os.environ.get("WORKLOAD_BARRIER_TIMEOUT_S", "120") or 120)
+    os.makedirs(barrier_dir, exist_ok=True)
+    # tmp+replace: a member crashing mid-announce must not leave a torn
+    # .ready file the barrier count would trust
+    marker = os.path.join(barrier_dir, f"{os.getpid()}.ready")
+    with open(marker + ".tmp", "w") as f:
+        f.write(str(os.getpid()))
+    os.replace(marker + ".tmp", marker)
+    deadline = time.monotonic() + budget
+    while True:
+        present = [n for n in os.listdir(barrier_dir) if n.endswith(".ready")]
+        if len(present) >= count:
+            return True
+        if time.monotonic() > deadline:
+            print(json.dumps({
+                "check": "start-barrier", "ok": False,
+                "error": f"only {len(present)}/{count} members after {budget}s",
+            }), flush=True)
+            return False
+        time.sleep(0.05)
+
+
+def main() -> int:
+    from tpu_operator_torch.obs import flight, trace
+    from tpu_operator_torch.validator import status as vstatus
+    from tpu_operator_torch.workloads import collectives, resolve_device
+
+    # no card and no TORCH_DEVICE=cpu request: raise, never measure the CPU
+    resolve_device()
+
+    checks = [
+        c.strip()
+        for c in os.environ.get("WORKLOAD_CHECKS", "vector-add,allreduce,burn-in").split(",")
+        if c.strip()
+    ]
+    ok = True
+    results: dict[str, dict] = {}
+
+    if not _start_barrier():
+        return 1
+
+    # device-count truth FIRST: a node with dead cards must fail here with
+    # the counts, not pass every check on the surviving subset
+    expected = os.environ.get("EXPECTED_DEVICES", "")
+    if expected:
+        try:
+            result = collectives.device_count_check(int(expected))
+        except ValueError:
+            result = {"ok": False, "error": f"malformed EXPECTED_DEVICES={expected!r}"}
+        print(json.dumps({"check": "devices", **result}), flush=True)
+        results["devices"] = result
+        if not result["ok"]:
+            # the remaining checks would measure the wrong topology
+            checks = []
+            ok = False
+
+    try:
+        budget = float(os.environ.get("WORKLOAD_BUDGET_S", "0") or 0)
+    except ValueError:
+        budget = 0.0
+    t_start = time.monotonic()
+
+    scope = os.environ.get("RESULTS_SCOPE", "")
+    recorder = flight.recorder_for(vstatus.flight_record_path(scope))
+    # adopt the propagated trace context (TPU_TRACEPARENT): the check spans
+    # and flight samples join the operator's rollout trace
+    tracer = trace.Tracer()
+    runners = check_runners()
+    with tracer.adopt(trace.TraceContext.from_env()), flight.activate(recorder):
+        for check in checks:
+            runner = runners.get(check)
+            if runner is None:
+                # validate the NAME even past the budget: a typo'd check must
+                # fail the pod, never be masked as a benign budget skip
+                result = {"ok": False, "error": f"unknown check {check}"}
+            elif budget and time.monotonic() - t_start > budget:
+                result = {"ok": True, "skipped": f"budget ({budget}s) exhausted"}
+            else:
+                with trace.span(f"check/{check}", kind=trace.KIND_PHASE, phase=check):
+                    t0 = time.monotonic()
+                    result = runner()
+                    result.setdefault("duration_s", round(time.monotonic() - t0, 6))
+                    flight.record_result(check, result)
+            print(json.dumps({"check": check, **result}), flush=True)
+            results[check] = result
+            ok = ok and bool(result.get("ok"))
+
+    # node-local drop-box: the validator merges the measured numbers into
+    # its payloads; best-effort, never a gate
+    vstatus.write_workload_results({"checks": results}, scope=scope)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
