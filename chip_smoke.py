@@ -3,29 +3,47 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the node readiness gate, the way the validator
-runs it, and holds every kernel on that path against its plain PyTorch
-version.  Phases, each fatal on failure:
+Drives the port's main paths, the node readiness gate and the long-context
+attention checks, the way the validator runs them, and holds every kernel on
+those paths against its plain PyTorch version.  Phases, each fatal on
+failure:
 
-1. device  — a CUDA card must be visible (no CPU fallback); prints its name
-   and power limit as nvidia-smi reports them
-2. build   — compiles the kernels from ``tpu_operator_torch/csrc`` with nvcc
-3. gate    — ``run_validation.main()`` with vector-add, allreduce and burn-in
-   at their shipping sizes and EXPECTED_DEVICES set: exit 0, one JSON line
-   per check, a drop-box holding all of them, finite outputs that agree
-   with a float64 reference, and every kernel's launch count above 0
-4. kernel  — each kernel against its plain version on the card: the f32 add
-   must be bit-identical (tolerance 0) at the gate's shape, a ragged shape
-   and a view one element off 16-byte alignment
-5. timing  — CUDA-event medians of the kernel, its plain version and the
-   library call, beside the least time the card's memory rate allows
+1. device    — a CUDA card must be visible (no CPU fallback); prints its
+   name and power limit as nvidia-smi reports them
+2. build     — compiles every source in ``tpu_operator_torch/csrc`` with
+   nvcc, one process per source, all started together
+3. gate      — ``run_validation.main()`` with vector-add, allreduce and
+   burn-in at their shipping sizes and EXPECTED_DEVICES set: exit 0, one
+   JSON line per check, a drop-box holding all of them, finite outputs that
+   agree with a float64 reference, and the vector_add launch count above 0
+4. attention — ``run_validation.main()`` with longctx (32k prefill), decode
+   (32k cache, 1024 chained decodes) and ring-attention (512 tokens, 4
+   heads, head dim 128 per card): exit 0, one JSON line per check, the
+   drop-box, longctx spot tiles and ring within 2e-2 of their references,
+   finite decode output, and both flash kernels' launch counts above 0
+5. kernel    — each kernel against its plain version on the card: the f32
+   add bit-identical (tolerance 0) at the gate's shape, a ragged shape and
+   a view one element off 16-byte alignment; the flash kernels at the main
+   paths' shapes, ragged serving shapes and a fully masked block: per case,
+   max |out - plain| within 1e-2 of max |plain| (one bf16 step at the
+   largest output is at most 2^-7 = 7.8e-3 of it), and m, l, lse within
+   1e-5 relative (f32 sums in another order); the fully masked block leaves
+   the state bit-identical
+6. timing    — CUDA-event medians of each kernel, its plain version and the
+   library call where one exists, beside the least time the card allows
+   (the larger of bytes over its memory rate and operations over its bf16
+   peak, from ``tpu_operator_torch/k8s/nodeinfo.py``)
 
-Prints the ``kernels`` JSON line, then, last, ``{"ok": true, "device":
-...}``.  Needs one card; uses every visible card for the gate's collectives.
+Launch counts are set to 0 just before each main path runs and read just
+after it; the kernel and timing phases' launches are not counted.  Prints
+the ``kernels`` JSON line, then, last, ``{"ok": true, "device": ...}``.
+Needs one card; uses every visible card for the gate's collectives and the
+ring.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -37,16 +55,16 @@ import sys
 import tempfile
 import time
 
-# HBM rate by card name (NVIDIA data sheets), most specific first
-HBM_BYTES_PER_S = (
-    ("H200", 4.8e12),
-    ("H100 NVL", 3.9e12),
-    ("H100 PCIe", 2.0e12),
-    ("H100", 3.35e12),  # SXM
-)
 GATE_SHAPE = (2048, 512)  # vector_add's default n = 1 << 20
 BIG_SHAPE = (65536, 512)  # 128 MiB per operand: past the 50 MB L2
 GATE_CHECKS = ("vector-add", "allreduce", "burn-in")
+ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
+PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
+DECODE_TAIL = 8            # decode's query rows at the end of the cache
+RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
+OUT_TOL = 2e-2             # the checks' max_error: bf16 output, the reference's bound
+KERNEL_OUT_RTOL = 1e-2     # kernel vs plain: max|out - plain| / max|plain|, per case
+STATE_RTOL = 1e-5          # m, l, lse: f32 sums in another order
 
 
 def require(cond: bool, msg: str) -> None:
@@ -54,11 +72,13 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
-def hbm_rate(name: str) -> float:
-    for key, rate in HBM_BYTES_PER_S:
-        if key in name:
-            return rate
-    raise RuntimeError(f"no memory rate on record for {name!r}")
+def peaks(name: str) -> tuple:
+    """(memory bytes/s, bf16 FLOP/s) of the card, from the data sheets."""
+    from tpu_operator_torch.k8s import nodeinfo
+
+    info = nodeinfo.generation_info(nodeinfo.generation_of(name))
+    require(info.hbm_gbps > 0, f"no memory rate on record for {name!r}")
+    return info.hbm_gbps * 1e9, info.peak_bf16_tflops * 1e12
 
 
 def device_phase():
@@ -76,11 +96,53 @@ def device_phase():
 def build_phase() -> None:
     from tpu_operator_torch.kernels import _build
 
-    built = _build.build("vector_add")
-    _build.library("vector_add")
-    print(f"build: vector_add {built.seconds:.2f}s -> {built.path}", flush=True)
-    if built.log.strip():
-        print(built.log.strip(), flush=True)
+    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        built = dict(zip(sources, pool.map(_build.build, sources)))
+    wall = time.perf_counter() - t0
+    for name in sources:
+        _build.library(name)
+        print(f"build: {name} {built[name].seconds:.2f}s -> {built[name].path}", flush=True)
+        if built[name].log.strip():
+            print(built[name].log.strip(), flush=True)
+    print(f"build: {len(sources)} sources in {wall:.2f}s wall", flush=True)
+
+
+def run_checks(checks: tuple, n_cards: int, counters) -> tuple:
+    """``run_validation.main()`` with ``checks`` and EXPECTED_DEVICES set,
+    its stdout captured; ``counters()`` is read just after the run.  Returns
+    (lines by check, counters read); fails unless rc is 0 and the JSON lines
+    and the drop-box hold exactly the device check and ``checks``."""
+    from tpu_operator_torch.validator import status
+    from tpu_operator_torch.workloads import run_validation
+
+    label = ",".join(checks)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
+        os.environ.update({
+            "WORKLOAD_CHECKS": label,
+            "EXPECTED_DEVICES": str(n_cards),
+            "DEVICE_COUNT_GATE_BACKENDS": "cuda",
+            "TPU_VALIDATION_ROOT": root,
+        })
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = run_validation.main()
+        seconds = time.perf_counter() - t0
+        counts = counters()
+        lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
+        for line in lines:
+            print(json.dumps(line), flush=True)
+        print(f"{label}: rc={rc} in {seconds:.2f}s, launches={counts}", flush=True)
+        require(rc == 0, f"run_validation ({label}) exited {rc}")
+        names = [line["check"] for line in lines]
+        require(names == ["devices", *checks], f"JSON lines for {names}")
+        dropbox = status.read_workload_results()
+        require(dropbox is not None, "no drop-box written")
+        require(set(dropbox["checks"]) == {"devices", *checks},
+                f"drop-box holds {sorted(dropbox['checks'])}")
+    return {line["check"]: line for line in lines}, counts
 
 
 def gate_phase(n_cards: int) -> int:
@@ -89,37 +151,12 @@ def gate_phase(n_cards: int) -> int:
     import torch
 
     from tpu_operator_torch.kernels import vector_add as va
-    from tpu_operator_torch.validator import status
-    from tpu_operator_torch.workloads import collectives, run_validation
+    from tpu_operator_torch.workloads import collectives
 
-    with tempfile.TemporaryDirectory(prefix="chip-smoke-") as root:
-        os.environ.update({
-            "WORKLOAD_CHECKS": ",".join(GATE_CHECKS),
-            "EXPECTED_DEVICES": str(n_cards),
-            "DEVICE_COUNT_GATE_BACKENDS": "cuda",
-            "TPU_VALIDATION_ROOT": root,
-        })
-        out = io.StringIO()
-        va.launches = 0
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(out):
-            rc = run_validation.main()
-        gate_s = time.perf_counter() - t0
-        launches = va.launches
-        lines = [json.loads(line) for line in out.getvalue().splitlines() if line.startswith("{")]
-        for line in lines:
-            print(json.dumps(line), flush=True)
-        print(f"gate: rc={rc} in {gate_s:.2f}s, vector_add launches={launches}", flush=True)
-        require(rc == 0, f"run_validation exited {rc}")
-        checks = [line["check"] for line in lines]
-        require(checks == ["devices", *GATE_CHECKS], f"JSON lines for {checks}")
-        dropbox = status.read_workload_results()
-        require(dropbox is not None, "no drop-box written")
-        require(set(dropbox["checks"]) == {"devices", *GATE_CHECKS},
-                f"drop-box holds {sorted(dropbox['checks'])}")
+    va.launches = 0
+    by, launches = run_checks(GATE_CHECKS, n_cards, lambda: va.launches)
     require(launches > 0, "the gate ran without launching the vector_add kernel")
 
-    by = {line["check"]: line for line in lines}
     require(by["vector-add"]["max_error"] == 0.0, "vector-add disagrees with x + y")
     require(by["allreduce"]["max_error"] == 0.0, "allreduce chain lost its ones")
     require(math.isfinite(by["allreduce"]["busbw_gbps"]), "allreduce rate not finite")
@@ -135,6 +172,32 @@ def gate_phase(n_cards: int) -> int:
     print(f"burn-in: first loss {losses[0]!r} vs float64 {ref!r} (rel {rel:.2e}, tol 1e-4)", flush=True)
     require(rel < 1e-4, "burn-in loss disagrees with the float64 reference")
     return launches
+
+
+def attention_phase(n_cards: int) -> tuple:
+    """Run the long-context checks through the entry point; returns the
+    launches of the flash forward and of the block update."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    fa.forward_launches = 0
+    fa.block_update_launches = 0
+    by, (forward, update) = run_checks(
+        ATTENTION_CHECKS, n_cards, lambda: (fa.forward_launches, fa.block_update_launches))
+    ring = by["ring-attention"]
+    if ring["devices"] > 1:
+        # the ring ran in one process per card: rank 0 counted its own
+        update += ring["launches"]
+    require(forward > 0, "longctx and decode ran without launching the flash forward kernel")
+    require(update > 0, "ring-attention ran without launching the flash block update kernel")
+    lc, dec = by["longctx"], by["decode"]
+    require(lc["max_error"] < OUT_TOL, f"longctx spot tiles off by {lc['max_error']}")
+    require(dec["ok"] and math.isfinite(dec["decode_us"]), "decode output not finite")
+    require(ring["max_error"] < OUT_TOL, f"ring-attention off by {ring['max_error']}")
+    require(ring["kernel"] == "cuda-flash", f"ring-attention folded with {ring['kernel']}")
+    print(f"attention: longctx {lc['attn_tflops']!r} attn-TFLOP/s, decode "
+          f"{dec['decode_us']!r} us/token ({dec['cache_gbps']!r} GB/s), ring max_error "
+          f"{ring['max_error']!r} over {ring['devices']} card(s)", flush=True)
+    return forward, update
 
 
 def kernel_phase() -> float:
@@ -172,6 +235,109 @@ def kernel_phase() -> float:
     return worst
 
 
+def _abs_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def _scaled_err(a, b) -> float:
+    """max |a - b| over max |b|: the error against the output's own scale,
+    which at 32k keys is about 0.02, not 1."""
+    return _abs_err(a, b) / float(b.float().abs().max())
+
+
+def _rel_err(a, b) -> float:
+    """max |a - b| / max(|b|, 1): relative where |b| >= 1 (lse and m cross
+    zero, where a relative error means nothing)."""
+    b = b.float()
+    return float(((a.float() - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def flash_kernel_phase() -> dict:
+    """Each flash kernel against its plain version on the card; returns the
+    worst out error of each."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    worst = {"flash_attention_local": 0.0, "flash_block_update": 0.0}
+    bh, t, d = PREFILL
+    forward_cases = [
+        # label, bh, tq, tk, d, causal, q_off, block_q, block_k
+        (f"prefill {PREFILL} causal", bh, t, t, d, True, 0, 1024, 1024),
+        (f"({bh}, 4096, {d}) causal", bh, 4096, 4096, d, True, 0, 1024, 1024),
+        (f"({bh}, 4096, {d}) non-causal", bh, 4096, 4096, d, False, 0, 1024, 1024),
+        (f"decode tail {DECODE_TAIL} x {t}", bh, DECODE_TAIL, t, d, True, t - DECODE_TAIL,
+         1024, 1024),
+    ]
+    for tt in (40, 136):
+        for dd in (8, 16):
+            forward_cases.append((f"serving T={tt} D={dd} block_q=8", 4, tt, tt, dd, True, 0,
+                                  8, 16))
+    forward_cases.append(("serving T=136 D=16 non-causal", 4, 136, 136, 16, False, 0, 8, 16))
+    for label, bh_, tq, tk, dd, causal, q_off, block_q, block_k in forward_cases:
+        q, k, v = randn(bh_, tq, dd), randn(bh_, tk, dd), randn(bh_, tk, dd)
+        out, lse = fa.flash_attention_local(q, k, v, causal, block_k, block_q, q_off)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, block_k, block_q,
+                                                          q_off)
+        err, scaled, lse_err = _abs_err(out, ref), _scaled_err(out, ref), _rel_err(lse, ref_lse)
+        print(f"kernel flash_attention_local {label}: out max_abs_err={err!r} "
+              f"(/max|plain| {scaled!r}) lse max_rel_err={lse_err!r}", flush=True)
+        require(scaled <= KERNEL_OUT_RTOL and lse_err <= STATE_RTOL,
+                f"flash_attention_local differs from its plain version at {label}")
+        worst["flash_attention_local"] = max(worst["flash_attention_local"], err)
+        del q, k, v, out, lse, ref, ref_lse
+
+    bh, t, d = RING_HOP
+    q = randn(bh, t, d)
+    k1, v1, k2, v2 = (randn(bh, t, d) for _ in range(4))
+
+    def fresh():
+        return (torch.full((bh, t), fa.NEG_INF, device="cuda"),
+                torch.zeros((bh, t), device="cuda"), torch.zeros((bh, t, d), device="cuda"))
+
+    q_off = 2 * t
+    # a carried state: an earlier, fully visible block already folded in
+    carried = fa.flash_block_update_reference(q, k1, v1, q_off, q_off - t, *fresh(), True)
+    update_cases = [
+        # label, state, k_off, causal
+        ("hop diagonal, carried state, causal", carried, q_off, True),
+        ("hop half visible, fresh state, causal", fresh(), q_off - t // 2, True),
+        ("hop, carried state, non-causal", carried, 5 * t, False),
+        ("fully masked block (k_off > q_off + Tq), carried state", carried, q_off + t + 64, True),
+        ("fully masked block, fresh state", fresh(), q_off + t + 64, True),
+    ]
+    for label, state, k_off, causal in update_cases:
+        m, l, o = (x.clone() for x in state)
+        fa.flash_block_update(q, k2, v2, q_off, k_off, m, l, o, causal)
+        torch.cuda.synchronize()
+        rm, rl, ro = fa.flash_block_update_reference(q, k2, v2, q_off, k_off, *state, causal)
+        if "fully masked" in label:
+            same = all(torch.equal(a, b) for a, b in zip((m, l, o), state))
+            print(f"kernel flash_block_update {label}: state unchanged={same}", flush=True)
+            require(same, f"flash_block_update changed the state at {label}")
+            continue
+
+        def normalized(o_, l_):
+            return o_ / torch.where(l_ > 0, l_, 1.0)[..., None]
+
+        out, ref = normalized(o, l), normalized(ro, rl)
+        err, scaled = _abs_err(out, ref), _scaled_err(out, ref)
+        m_err, l_err = _rel_err(m, rm), _rel_err(l, rl)
+        print(f"kernel flash_block_update {label}: out max_abs_err={err!r} "
+              f"(/max|plain| {scaled!r}) m max_rel_err={m_err!r} l max_rel_err={l_err!r}",
+              flush=True)
+        require(scaled <= KERNEL_OUT_RTOL and m_err <= STATE_RTOL and l_err <= STATE_RTOL,
+                f"flash_block_update differs from its plain version at {label}")
+        worst["flash_block_update"] = max(worst["flash_block_update"], err)
+    return worst
+
+
 def time_ms(fn, reps: int = 25, per: int = 20) -> float:
     """Median over ``reps`` runs of the per-launch time of ``per`` launches
     back to back, by CUDA events.  A sleep kernel holds the stream while the
@@ -200,7 +366,7 @@ def timing_phase(name: str) -> dict:
 
     from tpu_operator_torch.kernels import vector_add as va
 
-    rate = hbm_rate(name)
+    rate = peaks(name)[0]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
     for shape in (GATE_SHAPE, BIG_SHAPE):
@@ -225,12 +391,107 @@ def timing_phase(name: str) -> dict:
     return rows[GATE_SHAPE]
 
 
+def _bound(flops: float, nbytes: float, rates: tuple) -> dict:
+    """The least time the card could take: the larger of bytes over its
+    memory rate and operations over its bf16 peak."""
+    by_bytes, by_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def flash_timing_phase(name: str) -> dict:
+    """The flash kernels, their plain versions and the library call at the
+    main paths' shapes: prefill, decode and one ring hop."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    rates = peaks(name)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = {}
+    bh, t, d = PREFILL
+    q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+    pairs = bh * t * (t + 1) // 2  # (query, key) pairs the causal mask keeps
+    rows["prefill"] = {
+        "shape": [bh, t, d], "causal": True,
+        "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True), reps=5, per=3),
+        "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True),
+                            reps=3, per=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), reps=5, per=3),
+        # q, k, v read, out written (bf16); lse written (f32)
+        **_bound(4.0 * d * pairs, 4 * bh * t * d * 2 + bh * t * 4, rates),
+    }
+    q = randn(bh, DECODE_TAIL, d)
+    q_off = t - DECODE_TAIL
+    rows_pos = q_off + torch.arange(DECODE_TAIL, device="cuda")
+    # is_causal aligns top-left when Tq != Tk: the decode mask is explicit
+    mask = torch.arange(t, device="cuda")[None, :] <= rows_pos[:, None]
+    pairs = bh * sum(q_off + i + 1 for i in range(DECODE_TAIL))
+    rows["decode"] = {
+        "shape": [bh, DECODE_TAIL, t, d], "causal": True, "q_off": q_off,
+        "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True, q_off=q_off)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True,
+                                                                       q_off=q_off),
+                            reps=5, per=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask)),
+        **_bound(4.0 * d * pairs, (2 * bh * t * d + 2 * bh * DECODE_TAIL * d) * 2
+                 + bh * DECODE_TAIL * 4, rates),
+    }
+    del q, k, v
+    bh, t, d = RING_HOP
+    q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
+    m = torch.full((bh, t), fa.NEG_INF, device="cuda")
+    l = torch.zeros((bh, t), device="cuda")
+    o = torch.zeros((bh, t, d), device="cuda")
+    # one card's hop: its own (diagonal) block, causal; each timed launch
+    # folds the block into the same state again, which costs the same
+    rows["ring_hop"] = {
+        "shape": [bh, t, d], "causal": True,
+        "ms": time_ms(lambda: fa.flash_block_update(q, k, v, 0, 0, m, l, o, True)),
+        "plain_ms": time_ms(lambda: fa.flash_block_update_reference(q, k, v, 0, 0, m, l, o,
+                                                                    True)),
+        "library_ms": None,
+        "library_note": "no single PyTorch call folds a block into (m, l, o)",
+        # q, k, v read (bf16); m, l, o read and written (f32)
+        **_bound(4.0 * d * (bh * t * (t + 1) // 2),
+                 3 * bh * t * d * 2 + 2 * (2 * bh * t * 4 + bh * t * d * 4), rates),
+        "note": ("launch-bound: the bound is far below one kernel launch, and the "
+                 "working set stays in the 50 MB L2 between launches"),
+    }
+    for key, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps({"timing": key, **row}), flush=True)
+    return rows
+
+
 def main() -> int:
+    import torch
+
+    # the plain versions' f32 products in full f32, not TF32 (the default,
+    # stated here)
+    torch.backends.cuda.matmul.allow_tf32 = False
     name, count = device_phase()
     build_phase()
     launches = gate_phase(count)
+    forward_launches, update_launches = attention_phase(count)
     max_err = kernel_phase()
+    flash_err = flash_kernel_phase()
     t = timing_phase(name)
+    ft = flash_timing_phase(name)
+    source = "tpu_operator_torch/csrc/flash_attention.cu"
+
+    def entry(row: dict) -> dict:
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {key: row[key] for key in keys}
+
     print(json.dumps({"kernels": [{
         "name": "vector_add",
         "route": "cuda",
@@ -243,6 +504,24 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
+    }, {
+        "name": "flash_attention_local",
+        "route": "cuda",
+        "source": source,
+        "replaces": "tpu_operator/workloads/longctx.py:47",
+        "launches": forward_launches,
+        "max_abs_err": flash_err["flash_attention_local"],
+        **entry(ft["prefill"]),
+        "shapes": {"prefill": entry(ft["prefill"]), "decode": entry(ft["decode"])},
+    }, {
+        "name": "flash_block_update",
+        "route": "cuda",
+        "source": source,
+        "replaces": "tpu_operator/workloads/ring_attention.py:118",
+        "launches": update_launches,
+        "max_abs_err": flash_err["flash_block_update"],
+        **entry(ft["ring_hop"]),
+        "library_note": ft["ring_hop"]["library_note"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -12,7 +12,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 from tpu_operator_torch.kernels import vector_add as va  # noqa: E402
+
+OUT_RTOL = 1e-2    # flash: max|out - plain| / max|plain|; one bf16 step at the largest
+# output is at most 2^-7 = 7.8e-3 of it
+STATE_RTOL = 1e-5  # flash: m, l, lse in f32, sums in another order
 
 
 @pytest.fixture
@@ -68,3 +73,106 @@ def test_cuda_tensor_of_wrong_dtype_raises(cuda):
     x = torch.ones(8, device=cuda, dtype=torch.float16)
     with pytest.raises(TypeError):
         va.vector_add_kernel(x, x)
+
+
+# ---------------------------------------------------------------------------
+# flash attention (kernels B5 and B3)
+
+
+def _qkv(device, bh, tq, tk, d, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn((bh, t, d), generator=gen, device=device).to(torch.bfloat16)
+                 for t in (tq, tk, tk))
+
+
+def _fresh(bh, t, d, device):
+    return (torch.full((bh, t), fa.NEG_INF, device=device), torch.zeros((bh, t), device=device),
+            torch.zeros((bh, t, d), device=device))
+
+
+def _rel(a, b) -> float:
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
+def _scaled(a, b) -> float:
+    """max |a - b| over max |b|: at 32k keys the outputs are about 0.02."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def test_flash_cpu_tensors_take_the_plain_version():
+    q, k, v = _qkv("cpu", 2, 48, 48, 8)
+    before = (fa.forward_launches, fa.block_update_launches)
+    out, lse = fa.flash_attention_local(q, k, v, True, 16, 16)
+    ref_out, ref_lse = fa.flash_attention_local_reference(q, k, v, True, 16, 16)
+    assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
+    m, l, o = _fresh(2, 48, 8, "cpu")
+    ref = fa.flash_block_update_reference(q, k, v, 0, 0, m, l, o, True)
+    got = fa.flash_block_update(q, k, v, 0, 0, m, l, o, True)
+    assert got[0] is m and got[2] is o  # in place
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert (fa.forward_launches, fa.block_update_launches) == before
+
+
+@pytest.mark.parametrize(
+    "args, err",
+    [
+        ((torch.ones(1, 8, 8), torch.ones(1, 8, 8), torch.ones(1, 8, 8)), TypeError),
+        ((torch.ones(1, 8, 8).bfloat16(), torch.ones(1, 8, 16).bfloat16(),
+          torch.ones(1, 8, 16).bfloat16()), ValueError),
+        ((torch.ones(8, 8).bfloat16(),) * 3, ValueError),
+        ((torch.ones(1, 8, 8).bfloat16().transpose(1, 2),) * 3, ValueError),
+    ],
+    ids=["f32", "head-dim", "rank", "non-contiguous"],
+)
+def test_flash_wrapper_rejects_what_the_kernel_does_not_take(args, err):
+    with pytest.raises(err):
+        fa.flash_attention_local(*args)
+
+
+def test_flash_block_update_rejects_a_wrong_state():
+    q, k, v = _qkv("cpu", 2, 16, 16, 8)
+    m, l, o = _fresh(2, 16, 8, "cpu")
+    with pytest.raises(ValueError):
+        fa.flash_block_update(q, k, v, 0, 0, m.double(), l, o, True)
+    with pytest.raises(ValueError):
+        fa.flash_block_update(q, k, v, 0, 0, m, l, o[:, :8], True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "bh, tq, tk, d, causal, q_off",
+    [(8, 4096, 4096, 128, True, 0), (8, 4096, 4096, 128, False, 0),
+     (8, 8, 32768, 128, True, 32760), (4, 40, 40, 8, True, 0), (4, 136, 136, 16, True, 0),
+     (4, 136, 136, 8, False, 0), (2, 200, 200, 64, True, 0)],
+)
+def test_flash_forward_kernel_matches_plain(cuda, bh, tq, tk, d, causal, q_off):
+    q, k, v = _qkv(cuda, bh, tq, tk, d)
+    before = fa.forward_launches
+    out, lse = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off)
+    torch.cuda.synchronize()
+    assert fa.forward_launches == before + 1
+    ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off)
+    assert _scaled(out, ref) <= OUT_RTOL
+    assert _rel(lse, ref_lse) <= STATE_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_off, causal", [(1024, True), (768, True), (0, False), (1600, True)],
+                         ids=["diagonal", "half-visible", "non-causal", "fully-masked"])
+def test_flash_block_update_kernel_matches_plain(cuda, k_off, causal):
+    bh, t, d = 4, 512, 128
+    q, k, v = _qkv(cuda, bh, t, t, d, seed=1)
+    _, k0, v0 = _qkv(cuda, bh, t, t, d, seed=2)
+    state = fa.flash_block_update_reference(q, k0, v0, 1024, 512, *_fresh(bh, t, d, cuda), True)
+    m, l, o = (x.clone() for x in state)
+    before = fa.block_update_launches
+    fa.flash_block_update(q, k, v, 1024, k_off, m, l, o, causal)
+    torch.cuda.synchronize()
+    assert fa.block_update_launches == before + 1
+    if causal and k_off > 1024 + t:
+        assert all(torch.equal(a, b) for a, b in zip((m, l, o), state))
+        return
+    rm, rl, ro = fa.flash_block_update_reference(q, k, v, 1024, k_off, *state, causal)
+    assert _rel(m, rm) <= STATE_RTOL and _rel(l, rl) <= STATE_RTOL
+    assert _scaled(o / l[..., None], ro / rl[..., None]) <= OUT_RTOL

@@ -49,9 +49,44 @@ def test_port_imports_neither_jax_nor_the_reference():
     assert proc.returncode == 0, proc.stderr
     names, leaked = proc.stdout.strip().splitlines()[-2:]
     for module in ("workloads.run_validation", "workloads.collectives", "workloads._ranks",
-                   "kernels.vector_add", "kernels._build", "obs.flight", "validator.status"):
+                   "workloads.ring_attention", "workloads.longctx", "kernels.vector_add",
+                   "kernels.flash_attention", "kernels._build", "k8s.nodeinfo", "obs.flight",
+                   "validator.status"):
         assert f"tpu_operator_torch.{module}" in names.split(",")
     assert leaked == "LEAKED []"
+
+
+def _sources():
+    pkg = os.path.join(REPO, "tpu_operator_torch")
+    for root, _, files in os.walk(pkg):
+        for name in files:
+            if name.endswith(".py"):
+                yield os.path.join(root, name)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_source_imports_jax_or_the_reference():
+    """Every import statement in the port's sources and chip_smoke.py,
+    those inside functions too (the import check above sees only what
+    importing runs)."""
+    import ast
+
+    banned = {"jax", "jaxlib", "tpu_operator"}
+    found = []
+    for path in _sources():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}"
+                      for n in names if n.split(".")[0] in banned]
+    assert len(list(_sources())) > 20
+    assert found == []
 
 
 def test_resolve_device_never_falls_back(monkeypatch):

@@ -90,6 +90,22 @@ def test_budget_skips_but_unknown_names_still_fail(cpu_gate, monkeypatch, capsys
     assert not unknown["ok"] and unknown["error"] == "unknown check no-such-check"
 
 
+def test_long_context_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
+    """longctx, decode and ring-attention at their CPU shapes through the
+    entry point, with the reference's drop-box and flight record."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "longctx,decode,ring-attention")
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["longctx", "decode", "ring-attention"]
+    assert all(line["ok"] and line["backend"] == "cpu" for line in lines)
+    assert lines[0]["seq"] == 256 and lines[0]["max_error"] < 2e-2
+    assert lines[2]["seq"] == 16 and lines[2]["max_error"] < 2e-2
+    results = jstatus.read_workload_results()
+    assert set(results["checks"]) == {"longctx", "decode", "ring-attention"}
+    samples = jstatus.read_flight_record()
+    assert {s["check"] for s in samples} == {"longctx", "decode", "ring-attention"}
+
+
 @pytest.mark.parametrize("check", ["matmul", "serving"])
 def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")

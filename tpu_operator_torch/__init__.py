@@ -8,12 +8,14 @@ needed, the port keeps its own copy of the part it uses.
 
 Layout (mirrors ``tpu_operator/``):
 
-- ``workloads/``  — the readiness gate: ``run_validation`` and the checks it
-  runs (``collectives``), the local multi-rank launcher (``_ranks``) and the
+- ``workloads/``  — ``run_validation`` and the checks it runs: the readiness
+  gate (``collectives``) and long-context attention (``longctx``,
+  ``ring_attention``); the local multi-rank launcher (``_ranks``) and the
   shared timing rules (``timing``)
 - ``kernels/``    — the hand-written CUDA kernels, their plain PyTorch
   versions, and the ``nvcc`` + ``ctypes`` build (``_build``); sources live in
   ``csrc/``
+- ``k8s/``        — the NVIDIA card catalogue (``nodeinfo``)
 - ``obs/``, ``validator/``, ``consts`` — own copies of the trace spans, the
   flight recorder and the drop-box paths the gate writes through
 

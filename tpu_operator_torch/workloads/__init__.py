@@ -1,6 +1,7 @@
-"""The readiness-gate workloads on PyTorch: the vector-add kernel check, the
-NCCL allreduce benchmark and the sharded burn-in, driven by
-``run_validation``.
+"""The validation workloads on PyTorch, driven by ``run_validation``: the
+readiness gate (the vector-add kernel check, the NCCL allreduce benchmark,
+the sharded burn-in) and the long-context checks (longctx prefill, decode,
+ring attention) on the flash kernels.
 
 Device selection has no fallback: the gate runs on ``cuda`` unless the
 caller asks for the CPU (``TORCH_DEVICE=cpu``, the counterpart of the

@@ -1,0 +1,304 @@
+"""Ring attention on PyTorch: sequence-parallel exact attention over the
+local cards.  Port of the forward half of
+``tpu_operator/workloads/ring_attention.py`` (``:20-458``).
+
+The sequence axis is sharded over a ring of ranks, one per card
+(``_ranks``; NCCL on the cards, gloo on the CPU): every rank holds one block
+of Q/K/V, folds the K/V block it currently holds into its online-softmax
+state, then passes K/V one hop on (to rank + 1, from rank - 1).  After ``p``
+hops every Q block has seen the whole sequence while each rank held one
+block.  Causal masking works from global positions: at hop ``s`` the block
+held came from rank ``(r - s) mod p``.  On one card ``p = 1``: a single fold,
+no rotation.
+
+The fold is the hand-written kernel B3 (``kernels/flash_attention.py``) in
+the ``[B*H, T, D]`` layout, or the plain f32 path (``_plain_ring_forward``),
+the reference's own oracle.  The remat backward (kernel B4) is not ported.
+"""
+
+from __future__ import annotations
+
+import math
+import os
+import tempfile
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from tpu_operator_torch.kernels.flash_attention import (  # noqa: F401  (re-exported)
+    NEG_INF,
+    _q_tile,
+    flash_block_update,
+    online_softmax_block_update,
+)
+from tpu_operator_torch.obs import flight
+from tpu_operator_torch.workloads import _ranks, resolve_device
+
+
+def reference_attention(q, k, v, causal: bool) -> torch.Tensor:
+    """Single-device exact attention [B, T, H, D]: the truth the ring result
+    must match.  The reference's dtypes: scores from a product in q's dtype
+    (bf16 out), divided in f32; f32 softmax; weights in v's dtype."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k).float() / math.sqrt(q.shape[-1])
+    if causal:
+        t = q.shape[1]
+        mask = torch.tril(torch.ones((t, t), dtype=torch.bool, device=q.device))
+        s = torch.where(mask, s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", w.to(v.dtype), v)
+
+
+def _block_scores(q, k, scale):
+    return torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, D] -> [B*H, T, D], contiguous: the kernels' layout."""
+    b, t, h, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b * h, t, d).contiguous()
+
+
+def split_heads(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
+    """[B*H, T, D] -> [B, T, H, D] (merge_heads' inverse)."""
+    _, t, d = x.shape
+    return x.reshape(b, h, t, d).permute(0, 2, 1, 3)
+
+
+def _hop_scores(q32, k, scale, causal, q_pos, src, block):
+    """Scores of my Q block against the K block produced by rank ``src``,
+    causal-masked from global positions."""
+    scores = _block_scores(q32, k.float(), scale)  # [B, H, Tq, Tk]
+    if causal:
+        k_pos = src * block + torch.arange(block, device=q32.device)
+        mask = q_pos[:, None] >= k_pos[None, :]
+        scores = torch.where(mask, scores, NEG_INF)
+    return scores
+
+
+def _ring_group():
+    """(rank, size) of the ring: the default process group, or one rank
+    when there is none."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _rotate(*blocks):
+    """Pass each block one hop on: send to rank + 1, receive from rank - 1,
+    all posted together (a blocking send before the receive would
+    deadlock).  Returns the received blocks."""
+    rank, p = _ring_group()
+    nxt, prv = (rank + 1) % p, (rank - 1) % p
+    received = [torch.empty_like(b) for b in blocks]
+    ops = []
+    for b, r in zip(blocks, received):
+        ops.append(dist.P2POp(dist.isend, b, nxt))
+        ops.append(dist.P2POp(dist.irecv, r, prv))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return received
+
+
+def _lse_of(m, l):
+    """logsumexp per query from the online-softmax state."""
+    return m + torch.log(torch.where(l > 0, l, 1.0))
+
+
+def _plain_ring_forward(q, k, v, causal: bool):
+    """The plain ring forward: (out [B, T, H, D], lse [B, T, H]), all math
+    in f32 on [B, T, H] state, as the reference's jnp path."""
+    idx, p = _ring_group()
+    b, block, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    q32 = q.float()
+    m = torch.full((b, block, h), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, block, h), dtype=torch.float32, device=q.device)
+    o = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    q_pos = idx * block + torch.arange(block, device=q.device)
+
+    def consume(s, m, l, o, k, v):
+        src = (idx - s) % p
+        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block)
+        blk_max = scores.amax(dim=-1).permute(0, 2, 1)  # [B, Tq, H]
+        m_new = torch.maximum(m, blk_max)
+        corr = torch.exp(m - m_new)
+        e = torch.exp(scores - m_new.permute(0, 2, 1)[..., None])
+        e = torch.where(scores <= NEG_INF * 0.5, 0.0, e)
+        l_new = l * corr + e.sum(-1).permute(0, 2, 1)
+        blk_o = torch.einsum("bhqk,bkhd->bqhd", e, v.float())
+        return m_new, l_new, o * corr[..., None] + blk_o
+
+    # p - 1 fold-and-rotate hops, then the last fold WITHOUT the rotation
+    for s in range(p - 1):
+        m, l, o = consume(s, m, l, o, k, v)
+        k, v = _rotate(k, v)
+    m, l, o = consume(p - 1, m, l, o, k, v)
+    denom = torch.where(l > 0, l, 1.0)
+    return (o / denom[..., None]).to(q.dtype), _lse_of(m, l)
+
+
+def _kernel_ring_forward(q, k, v, causal: bool):
+    """The ring forward on kernel B3: (out [B, T, H, D], lse [B, T, H]), the
+    layouts of ``_plain_ring_forward``."""
+    idx, p = _ring_group()
+    b, block, h, d = q.shape
+    m = torch.full((b * h, block), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b * h, block), dtype=torch.float32, device=q.device)
+    o = torch.zeros((b * h, block, d), dtype=torch.float32, device=q.device)
+    # merge once and rotate in the kernel layout
+    qm, k, v = merge_heads(q), merge_heads(k), merge_heads(v)
+
+    def consume(s):
+        src = (idx - s) % p
+        flash_block_update(qm, k, v, idx * block, src * block, m, l, o, causal)
+
+    for s in range(p - 1):
+        consume(s)
+        k, v = _rotate(k, v)
+    consume(p - 1)
+    denom = torch.where(l > 0, l, 1.0)
+    out = split_heads(o / denom[..., None], b, h)
+
+    def split2(x):  # [B*H, T] -> [B, T, H]
+        return x.reshape(b, h, block).permute(0, 2, 1)
+
+    return out.to(q.dtype), _lse_of(split2(m), split2(l))
+
+
+def ring_attention_sharded(q, k, v, causal: bool, use_kernel: bool = False) -> torch.Tensor:
+    """The per-rank program: this rank's [B, T/p, H, D] blocks in, its block
+    of the output out.  Runs over the default process group (one rank when
+    there is none).  ``use_kernel`` folds through kernel B3; otherwise the
+    plain path, its reference."""
+    forward = _kernel_ring_forward if use_kernel else _plain_ring_forward
+    out, _ = forward(q, k, v, causal)
+    return out
+
+
+def _ring_rank(rank: int, n: int, device: torch.device, qkv, causal: bool,
+               use_kernel: bool, tol: float, out_path: str) -> dict:
+    """One rank of the ring check: slice my shard of the full host inputs,
+    run the ring, hold my rows against the single-device reference; the max
+    error is the max over every rank.  With ``out_path``, rank 0 saves the
+    gathered output there (.npy, f32)."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16).to(device) for x in qkv)
+    b, t, h, d = q.shape
+    if t % n:
+        raise ValueError(f"sequence {t} does not split over {n} ranks")
+    block = t // n
+    rows = slice(rank * block, (rank + 1) * block)
+    q_s, k_s, v_s = (x[:, rows].contiguous() for x in (q, k, v))
+
+    launches = fa.block_update_launches
+    t0 = time.perf_counter()
+    out = ring_attention_sharded(q_s, k_s, v_s, causal, use_kernel)
+    ref = reference_attention(q, k, v, causal)[:, rows]
+    err = (out.float() - ref.float()).abs().max()
+    if n > 1:
+        dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    err = float(err)  # the readback waits for the card
+    dt = time.perf_counter() - t0
+    if out_path:
+        parts = [torch.empty_like(out) for _ in range(n)] if n > 1 else [out]
+        if n > 1:
+            dist.all_gather(parts, out.contiguous())
+        if rank == 0:
+            np.save(out_path, torch.cat(parts, dim=1).float().cpu().numpy())
+    flight.record("ring-attention", "run", step_s=dt, seq=t, max_error=err)
+    return {
+        "ok": bool(np.isfinite(err) and err < tol),
+        "devices": n,
+        "seq": t,
+        "seq_per_chip": block,
+        "heads": h,
+        "head_dim": d,
+        "causal": causal,
+        "kernel": ("plain" if not use_kernel
+                   else "cuda-flash" if device.type == "cuda" else "plain-flash"),
+        "max_error": err,
+        "time_s": dt,
+        "backend": device.type,
+        # kernel B3 launches in rank 0's process during this run
+        "launches": fa.block_update_launches - launches,
+    }
+
+
+def _run(q, k, v, causal, use_kernel, world_size, device, tol=2e-2, out_path=""):
+    """The ring check over ``world_size`` ranks (default: one per card, one
+    on the CPU) on full host arrays ``[B, T, H, D]``; every rank gets the
+    same arrays."""
+    device = resolve_device(device)
+    if world_size is None:
+        world_size = torch.cuda.device_count() if device.type == "cuda" else 1
+    kwargs = dict(qkv=tuple(np.asarray(x, np.float32) for x in (q, k, v)), causal=causal,
+                  use_kernel=use_kernel, tol=tol, out_path=out_path)
+    if world_size == 1:
+        return _ring_rank(0, 1, device, **kwargs)
+    return _ranks.run(_ring_rank, world_size, device.type, **kwargs)
+
+
+def ring_attention(q, k, v, causal: bool = True, use_kernel: bool = False,
+                   world_size: Optional[int] = None, device=None) -> np.ndarray:
+    """Ring attention of full host arrays ``[B, T, H, D]`` (values rounded
+    to bf16) over ``world_size`` ranks, the sequence split evenly; returns
+    the gathered output as f32 numpy."""
+    with tempfile.TemporaryDirectory(prefix="ring-attention-") as tmp:
+        path = os.path.join(tmp, "out.npy")
+        _run(q, k, v, causal, use_kernel, world_size, device, out_path=path)
+        return np.load(path)
+
+
+def acceptance(
+    batch: int = 1,
+    seq_per_chip: int = 128,
+    heads: int = 4,
+    head_dim: int = 64,
+    causal: bool = True,
+    world_size: Optional[int] = None,
+    tol: float = 2e-2,
+    use_kernel: bool = False,
+    device=None,
+) -> dict:
+    """Run ring attention over every local card (``world_size`` ranks on
+    the CPU) and hold it against single-device attention on the whole
+    sequence (bf16 tolerance).  The inputs are bf16 normals from seed 0,
+    made on the host.  Returns the check-result dict (run_validation
+    shape)."""
+    device = resolve_device(device)
+    n = world_size or (torch.cuda.device_count() if device.type == "cuda" else 1)
+    gen = torch.Generator().manual_seed(0)
+    shape = (batch, seq_per_chip * n, heads, head_dim)
+    q, k, v = (torch.randn(shape, generator=gen).bfloat16().float() for _ in range(3))
+    return _run(q, k, v, causal, use_kernel, n, device, tol)
+
+
+def quick_check(device=None) -> dict:
+    """The validator's probe: the shipping shapes on kernel B3 on a card;
+    tiny shapes on the CPU (where the wrapper takes the plain version)."""
+    device = resolve_device(device)
+    if device.type == "cuda":
+        return acceptance(seq_per_chip=512, head_dim=128, use_kernel=True, device=device)
+    return acceptance(seq_per_chip=16, heads=2, head_dim=8, use_kernel=True, device=device)
+
+
+def main() -> int:
+    import json
+
+    from tpu_operator_torch.validator import status as vstatus
+
+    with flight.activate(flight.recorder_for(vstatus.flight_record_path())):
+        result = quick_check()
+        flight.record_result("ring-attention", result)
+    print(json.dumps(result), flush=True)
+    return 0 if result["ok"] else 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(main())

@@ -8,7 +8,9 @@ flight samples and writes the drop-box the validator reads back.
 Env (as the reference, plus ``TORCH_DEVICE``):
 - ``WORKLOAD_CHECKS``: comma list of check names (default
   ``vector-add,allreduce,burn-in``); the names are the reference's 18, and
-  a check not yet ported fails with an error saying so
+  a check not yet ported fails with an error saying so; ported:
+  ``vector-add``, ``allreduce``, ``burn-in``, ``ring-attention``,
+  ``longctx``, ``decode``
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
@@ -34,9 +36,8 @@ NOT_PORTED = "not yet ported to tpu_operator_torch"
 
 # the reference's checks this port does not run yet, in its dispatch order
 _UNPORTED = (
-    "transformer", "transformer-pp", "train", "matmul", "ring-attention",
-    "ulysses", "moe", "longctx", "decode", "pipeline", "ring", "hbm",
-    "hbm-dma", "warm-pool", "serving",
+    "transformer", "transformer-pp", "train", "matmul", "ulysses", "moe",
+    "pipeline", "ring", "hbm", "hbm-dma", "warm-pool", "serving",
 )
 
 
@@ -63,10 +64,34 @@ def check_runners() -> dict:
             seed=int(os.environ.get("BURN_IN_SEED", "0") or 0),
         )
 
+    def ring_attention():
+        # sequence-parallel exact attention over the local cards, one rank
+        # each (long-context acceptance; correctness-or-fail)
+        from tpu_operator_torch.workloads import ring_attention as ra
+
+        return ra.quick_check()
+
+    def longctx():
+        # long-context prefill: K/V-streamed flash attention (32k tokens
+        # on one card), spot-tile exactness + throughput
+        from tpu_operator_torch.workloads import longctx as lc
+
+        return lc.quick_check()
+
+    def decode():
+        # decode attention against a long KV cache: per-token latency +
+        # cache-read rate (the byte-bound half of serving)
+        from tpu_operator_torch.workloads import longctx as lc
+
+        return lc.decode_quick_check()
+
     return {
         "vector-add": collectives.vector_add,
         "allreduce": allreduce,
         "burn-in": burn_in,
+        "ring-attention": ring_attention,
+        "longctx": longctx,
+        "decode": decode,
         **{name: _not_ported for name in _UNPORTED},
     }
 
