@@ -3,10 +3,10 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths, the node readiness gate and the long-context
-attention checks, the way the validator runs them, and holds every kernel on
-those paths against its plain PyTorch version.  Phases, each fatal on
-failure:
+Drives the port's main paths, the node readiness gate, the long-context
+attention checks and the post-ready perf probes, the way the validator runs
+them, and holds every kernel on those paths against its plain PyTorch
+version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
    name and power limit as nvidia-smi reports them
@@ -21,18 +21,29 @@ failure:
    heads, head dim 128 per card): exit 0, one JSON line per check, the
    drop-box, longctx spot tiles and ring within 2e-2 of their references,
    finite decode output, and both flash kernels' launch counts above 0
-5. kernel    — each kernel against its plain version on the card: the f32
+5. probes    — ``run_validation.main()`` with matmul, hbm, hbm-dma (and
+   ring on more than one card) at their shipping sizes under
+   RESULTS_SCOPE=perf: exit 0, one JSON line per check, the perf drop-box
+   and flight record, the DMA-pipeline kernel's launch count above 0 and
+   hbm-dma on it, matmul finite with 0 < MFU <= 1, hbm and hbm-dma at
+   0 < share of the memory rate <= 1.05 (above that is L2 reuse or a
+   mis-count, not a fast card), ring max_error exactly 0
+6. kernel    — each kernel against its plain version on the card: the f32
    add bit-identical (tolerance 0) at the gate's shape, a ragged shape and
    a view one element off 16-byte alignment; the flash kernels at the main
    paths' shapes, ragged serving shapes and a fully masked block: per case,
    max |out - plain| within 1e-2 of max |plain| (one bf16 step at the
    largest output is at most 2^-7 = 7.8e-3 of it), and m, l, lse within
    1e-5 relative (f32 sums in another order); the fully masked block leaves
-   the state bit-identical
-6. timing    — CUDA-event medians of each kernel, its plain version and the
+   the state bit-identical; the DMA copy bit-identical (as int32 or int16
+   views, tolerance 0) on random bit patterns with NaN payloads, at the toy
+   shapes, the probe shape and in bf16, and the wrapper's alignment
+   rejections
+7. timing    — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its bf16
-   peak, from ``tpu_operator_torch/k8s/nodeinfo.py``)
+   peak, from ``tpu_operator_torch/k8s/nodeinfo.py``); the DMA copy at the
+   probe's shape at 1 and 16 passes per launch
 
 Launch counts are set to 0 just before each main path runs and read just
 after it; the kernel and timing phases' launches are not counted.  Prints
@@ -59,6 +70,9 @@ GATE_SHAPE = (2048, 512)  # vector_add's default n = 1 << 20
 BIG_SHAPE = (65536, 512)  # 128 MiB per operand: past the 50 MB L2
 GATE_CHECKS = ("vector-add", "allreduce", "burn-in")
 ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
+PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
+DMA_PROBE = ((131072, 512), 2048, 4)  # hbm-dma's shipping (shape, chunk_rows, slots): 256 MiB f32
+MAX_SHARE = 1.05           # of the memory rate: above it is L2 reuse or a mis-count
 PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
 DECODE_TAIL = 8            # decode's query rows at the end of the cache
 RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
@@ -109,11 +123,12 @@ def build_phase() -> None:
     print(f"build: {len(sources)} sources in {wall:.2f}s wall", flush=True)
 
 
-def run_checks(checks: tuple, n_cards: int, counters) -> tuple:
-    """``run_validation.main()`` with ``checks`` and EXPECTED_DEVICES set,
-    its stdout captured; ``counters()`` is read just after the run.  Returns
-    (lines by check, counters read); fails unless rc is 0 and the JSON lines
-    and the drop-box hold exactly the device check and ``checks``."""
+def run_checks(checks: tuple, n_cards: int, counters, scope: str = "") -> tuple:
+    """``run_validation.main()`` with ``checks``, EXPECTED_DEVICES and
+    RESULTS_SCOPE=``scope`` set, its stdout captured; ``counters()`` is read
+    just after the run.  Returns (lines by check, counters read); fails
+    unless rc is 0, the JSON lines and the scope's drop-box hold exactly the
+    device check and ``checks``, and the scope's flight record exists."""
     from tpu_operator_torch.validator import status
     from tpu_operator_torch.workloads import run_validation
 
@@ -124,6 +139,7 @@ def run_checks(checks: tuple, n_cards: int, counters) -> tuple:
             "EXPECTED_DEVICES": str(n_cards),
             "DEVICE_COUNT_GATE_BACKENDS": "cuda",
             "TPU_VALIDATION_ROOT": root,
+            "RESULTS_SCOPE": scope,
         })
         out = io.StringIO()
         t0 = time.perf_counter()
@@ -138,10 +154,12 @@ def run_checks(checks: tuple, n_cards: int, counters) -> tuple:
         require(rc == 0, f"run_validation ({label}) exited {rc}")
         names = [line["check"] for line in lines]
         require(names == ["devices", *checks], f"JSON lines for {names}")
-        dropbox = status.read_workload_results()
-        require(dropbox is not None, "no drop-box written")
+        dropbox = status.read_workload_results(scope)
+        require(dropbox is not None, f"no drop-box written (scope {scope!r})")
         require(set(dropbox["checks"]) == {"devices", *checks},
                 f"drop-box holds {sorted(dropbox['checks'])}")
+        require(os.path.exists(status.flight_record_path(scope)),
+                f"no flight record written (scope {scope!r})")
     return {line["check"]: line for line in lines}, counts
 
 
@@ -198,6 +216,37 @@ def attention_phase(n_cards: int) -> tuple:
           f"{dec['decode_us']!r} us/token ({dec['cache_gbps']!r} GB/s), ring max_error "
           f"{ring['max_error']!r} over {ring['devices']} card(s)", flush=True)
     return forward, update
+
+
+def probes_phase(n_cards: int) -> int:
+    """Run the post-ready perf probes through the entry point, as the
+    validator's perf-probes pod does (RESULTS_SCOPE=perf); returns the
+    DMA-pipeline kernel's launches."""
+    from tpu_operator_torch.kernels import dma_pipeline as dp
+
+    checks = PROBE_CHECKS + (("ring",) if n_cards > 1 else ())
+    dp.launches = 0
+    by, launches = run_checks(checks, n_cards, lambda: dp.launches, scope="perf")
+    require(launches > 0, "hbm-dma ran without launching the DMA-pipeline kernel")
+    mm, hbm, dma = by["matmul"], by["hbm"], by["hbm-dma"]
+    require(dma["kernel"] == "cuda-dma", f"hbm-dma copied with {dma['kernel']}")
+    require(all(r["finite"] for r in mm["results"]), "matmul chain not finite")
+    require(mm["mfu"] is not None and 0 < mm["mfu"] <= 1.0, f"matmul MFU {mm['mfu']}")
+    for label, r in (("hbm", hbm), ("hbm-dma", dma)):
+        share = r["fraction_of_peak"]
+        require(share is not None and 0 < share <= MAX_SHARE,
+                f"{label} at {share} of the memory rate")
+    per_size = ", ".join(f"{r['size']}: {r['tflops']!r}" for r in mm["results"])
+    ring = ""
+    if n_cards > 1:
+        rr = by["ring"]
+        require("skipped" not in rr and rr["max_error"] == 0.0,
+                f"ring max_error {rr.get('max_error')}")
+        ring = f", ring {rr['link_gbps']!r} GB/s per link over {rr['devices']} cards"
+    print(f"probes: matmul {mm['tflops']!r} TFLOP/s (MFU {mm['mfu']!r}; by size {per_size}), "
+          f"hbm {hbm['gbps']!r} GB/s ({hbm['fraction_of_peak']!r}), hbm-dma {dma['gbps']!r} "
+          f"GB/s ({dma['fraction_of_peak']!r}){ring}", flush=True)
+    return launches
 
 
 def kernel_phase() -> float:
@@ -338,6 +387,70 @@ def flash_kernel_phase() -> dict:
     return worst
 
 
+def _random_bits(gen, shape, dtype):
+    """Random bit patterns of ``dtype`` (f32 or bf16), a few NaN payloads
+    (quiet and signalling, both signs) and infinities among them."""
+    import torch
+
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    info = torch.iinfo(ints)
+    n = math.prod(shape)
+    bits = torch.randint(info.min, info.max, (n,), generator=gen, device="cuda", dtype=ints)
+    if dtype == torch.float32:
+        special = [0x7FC00001, 0x7FA00000, -0x003FFFFF, 0x7F800000, -0x00800000]
+    else:
+        special = [0x7FC1, 0x7FA0, -0x003F, 0x7F80, -0x0080]
+    bits[:len(special)] = torch.tensor(special, dtype=ints, device="cuda")
+    return bits.view(dtype).view(shape)
+
+
+def dma_kernel_phase() -> float:
+    """Bit-for-bit parity of the DMA-pipeline kernel with its plain version;
+    returns max |out - plain| over the finite elements (0.0 when every case
+    is bit-identical)."""
+    import torch
+
+    from tpu_operator_torch.kernels import dma_pipeline as dp
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    (rows, cols), chunk, slots = DMA_PROBE
+    cases = [
+        # label, shape, dtype, iters, chunk_rows, slots
+        *((f"toy (32, 512) iters={i} chunk={c} slots={s}", (32, 512), torch.float32, i, c, s)
+          for i, c, s in ((2, 8, 2), (1, 8, 1), (1, 8, 4), (3, 16, 2))),
+        (f"probe ({rows}, {cols}) iters=1", (rows, cols), torch.float32, 1, chunk, slots),
+        (f"probe ({rows}, {cols}) iters=2, 64 slots", (rows, cols), torch.float32, 2, chunk, 64),
+        ("bf16 (256, 512) iters=2", (256, 512), torch.bfloat16, 2, 64, 2),
+    ]
+    worst = 0.0
+    for label, shape, dtype, iters, chunk_rows, n_slots in cases:
+        x = _random_bits(gen, shape, dtype)
+        out = dp.dma_pipeline_copy(x, iters, chunk_rows, n_slots)
+        torch.cuda.synchronize()
+        ref = dp.dma_pipeline_copy_reference(x, iters)
+        ints = torch.int32 if dtype == torch.float32 else torch.int16
+        same = bool(torch.equal(out.view(ints), ref.view(ints)))
+        finite = ref.isfinite()
+        err = _abs_err(out[finite], ref[finite])
+        print(f"kernel dma_pipeline_copy {label}: tile {dp.tile_bytes(x, chunk_rows, n_slots)} "
+              f"bytes, max_abs_err={err!r} bit_identical={same}", flush=True)
+        require(same, f"dma_pipeline_copy differs from its plain version at {label}")
+        worst = max(worst, err)
+        del x, out, ref
+    # what a bulk copy does not take is refused before any launch
+    base = torch.zeros(64 * 512 + 1, device="cuda")
+    for label, x in (("a view one element off 16-byte alignment", base[1:].view(64, 512)),
+                     ("12-byte rows", torch.zeros((64, 3), device="cuda")),
+                     ("a transposed view", torch.zeros((512, 64), device="cuda").t())):
+        try:
+            dp.dma_pipeline_copy(x, 1, 8, 1)
+        except ValueError as e:
+            print(f"kernel dma_pipeline_copy rejects {label}: {e}", flush=True)
+        else:
+            raise RuntimeError(f"dma_pipeline_copy took {label}")
+    return worst
+
+
 def time_ms(fn, reps: int = 25, per: int = 20) -> float:
     """Median over ``reps`` runs of the per-launch time of ``per`` launches
     back to back, by CUDA events.  A sleep kernel holds the stream while the
@@ -472,6 +585,39 @@ def flash_timing_phase(name: str) -> dict:
     return rows
 
 
+def dma_timing_phase(name: str) -> dict:
+    """The DMA-pipeline kernel, its plain version and the library copy at
+    the probe's shape, at 1 and 16 passes per launch."""
+    import torch
+
+    from tpu_operator_torch.kernels import dma_pipeline as dp
+
+    rates = peaks(name)
+    (rows, cols), chunk, slots = DMA_PROBE
+    x = torch.randn((rows, cols), generator=torch.Generator(device="cuda").manual_seed(5),
+                    device="cuda")
+    out = torch.empty_like(x)
+    nbytes = x.numel() * x.element_size()
+    library_ms = time_ms(lambda: out.copy_(x))
+    result = {}
+    for iters, reps, per in ((1, 25, 20), (16, 10, 5)):
+        row = {
+            "shape": [rows, cols], "iters": iters, "chunk_rows": chunk, "slots": slots,
+            "tile_bytes": dp.tile_bytes(x, chunk, slots),
+            "ms": time_ms(lambda: dp.dma_pipeline_copy(x, iters, chunk, slots), reps, per),
+            "plain_ms": time_ms(lambda: dp.dma_pipeline_copy_reference(x, iters), reps, per),
+            "library_ms": library_ms,
+            "library_note": ("one out.copy_(x): the same output as any number of passes; at "
+                             "iters = 1 it is also the plain version"),
+            # every pass reads x once and writes out once: 256 MiB, five times the L2
+            **_bound(0.0, 2.0 * nbytes * iters, rates),
+        }
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps({"timing": f"dma_pipeline_copy iters={iters}", **row}), flush=True)
+        result[iters] = row
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -482,10 +628,13 @@ def main() -> int:
     build_phase()
     launches = gate_phase(count)
     forward_launches, update_launches = attention_phase(count)
+    dma_launches = probes_phase(count)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
+    dma_err = dma_kernel_phase()
     t = timing_phase(name)
     ft = flash_timing_phase(name)
+    dt = dma_timing_phase(name)
     source = "tpu_operator_torch/csrc/flash_attention.cu"
 
     def entry(row: dict) -> dict:
@@ -522,6 +671,16 @@ def main() -> int:
         "max_abs_err": flash_err["flash_block_update"],
         **entry(ft["ring_hop"]),
         "library_note": ft["ring_hop"]["library_note"],
+    }, {
+        "name": "dma_pipeline_copy",
+        "route": "cuda",
+        "source": "tpu_operator_torch/csrc/dma_pipeline.cu",
+        "replaces": "tpu_operator/workloads/hbm_pallas.py:48",
+        "launches": dma_launches,
+        "max_abs_err": dma_err,
+        **entry(dt[1]),
+        "library_note": dt[1]["library_note"],
+        "shapes": {"iters=1": entry(dt[1]), "iters=16": entry(dt[16])},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -157,3 +157,74 @@ def test_device_count_check_matches_reference(monkeypatch, expected, processes, 
         assert r[key] == ref[key], key
     if "error" in r:
         assert "8 local" in r["error"] and f"{expected} local" in r["error"]
+
+
+# ---------------------------------------------------------------------------
+# ring exchange (per-link diagnostic)
+
+
+def test_ring_four_ranks_matches_reference():
+    """Four gloo ranks against the reference's ring on four virtual
+    devices: every hop verified exactly, the same hop count and size."""
+    ref = jc.ring_benchmark(size_mb=2, iters=2, best_of=2, devices=jax.devices()[:4])
+    recorder = flight.FlightRecorder()
+    with flight.activate(recorder):
+        r = tc.ring_benchmark(size_mb=2, iters=2, best_of=2, world_size=4, device="cpu")
+    assert r["ok"] and ref["ok"]
+    assert r["max_error"] == ref["max_error"] == 0.0
+    for key in ("hops", "devices", "size_mb"):
+        assert r[key] == ref[key], key
+    assert r["hops"] == 8 and r["devices"] == 4
+    assert set(r) == set(ref)
+    assert r["transport"] == "nvlink" and r["backend"] == "cpu" and r["link_gbps"] > 0
+    phases = [s["phase"] for s in recorder.samples if s["check"] == "ring"]
+    assert phases.count("compile") == 1 and phases.count("step") == 2
+
+
+def test_ring_single_rank_skips_like_reference():
+    ref = jc.ring_benchmark(devices=jax.devices()[:1])
+    r = tc.ring_benchmark(world_size=1, device="cpu")
+    assert r["ok"] and r["transport"] == "hbm-local" and "skipped" in r
+    assert set(r) == set(ref)
+
+
+def test_ring_payload_is_bf16_rounded():
+    assert tc.ring_payload(4) == [1.0, 2.0, 3.0, 4.0]
+    # 257 is not a bf16 value: it rides the ring as 256, and the expected
+    # sums follow the rounded payload as the reference's do
+    assert tc.ring_payload(300)[256] == 256.0
+
+
+def test_ring_corrupted_payload_fails():
+    """Rank 2 sends 4 where every rank's expected sum counts 3: each
+    accumulator that saw it is off by one, and the check fails."""
+    from tpu_operator_torch.workloads import _ranks
+
+    values = tc.ring_payload(4)
+    corrupted = list(values)
+    corrupted[2] += 1.0
+    r = _ranks.run(tc._ring_rank, 4, "cpu", size_mb=0.25, iters=1, best_of=1,
+                   values=corrupted, distinct_total=float(sum(values)))
+    assert not r["ok"] and r["max_error"] == 1.0
+
+
+@pytest.mark.parametrize(
+    "transport, backend, dominated, gated",
+    [
+        ("nvlink", "cpu", False, True),
+        ("hbm-local", "cpu", False, False),  # a skipped single card is never gated
+        ("nvlink", "cuda", False, False),  # backend not in the widened list
+        ("nvlink", "cpu", True, False),  # an overhead-dominated number can't gate
+    ],
+)
+def test_ring_gate_matches_reference(monkeypatch, transport, backend, dominated, gated):
+    monkeypatch.setenv("RING_GATE_BACKENDS", "cpu")
+    result = {"ok": True, "link_gbps": 1.0, "transport": transport, "backend": backend,
+              "overhead_dominated": dominated}
+    mine = tc.apply_ring_gate(dict(result), 100.0)
+    ref = jc.apply_ring_gate(
+        dict(result, transport="ici" if transport == "nvlink" else transport,
+             backend="tpu" if backend == "cuda" else backend), 100.0)
+    assert mine["gated"] is gated and mine["ok"] is (not gated)
+    assert (mine["gated"], mine["ok"], mine.get("error")) == (ref["gated"], ref["ok"],
+                                                              ref.get("error"))

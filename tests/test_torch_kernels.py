@@ -12,6 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tpu_operator_torch.kernels import dma_pipeline as dp  # noqa: E402
 from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 from tpu_operator_torch.kernels import vector_add as va  # noqa: E402
 
@@ -176,3 +177,79 @@ def test_flash_block_update_kernel_matches_plain(cuda, k_off, causal):
     rm, rl, ro = fa.flash_block_update_reference(q, k, v, 1024, k_off, *state, causal)
     assert _rel(m, rm) <= STATE_RTOL and _rel(l, rl) <= STATE_RTOL
     assert _scaled(o / l[..., None], ro / rl[..., None]) <= OUT_RTOL
+
+
+# ---------------------------------------------------------------------------
+# DMA-pipeline copy (kernel B2)
+
+
+def _bits(device, shape, dtype=torch.float32, seed=0):
+    """Random bit patterns of ``dtype`` with NaN payloads (quiet and
+    signalling, both signs) and infinities among them."""
+    ints = torch.int32 if dtype == torch.float32 else torch.int16
+    info = torch.iinfo(ints)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bits = torch.randint(info.min, info.max, (math.prod(shape),), generator=gen,
+                         device=device, dtype=ints)
+    special = ([0x7FC00001, 0x7FA00000, -0x003FFFFF, 0x7F800000, -0x00800000]
+               if dtype == torch.float32 else [0x7FC1, 0x7FA0, -0x003F, 0x7F80, -0x0080])
+    bits[:len(special)] = torch.tensor(special, dtype=ints, device=device)
+    return bits.view(dtype).view(shape), ints
+
+
+def test_dma_cpu_tensors_take_the_plain_version():
+    x, ints = _bits("cpu", (64, 512))
+    before = dp.launches
+    out = dp.dma_pipeline_copy(x, 2, 16, 2)
+    assert dp.launches == before
+    assert out.data_ptr() != x.data_ptr()  # a copy, not the input
+    assert torch.equal(out.view(ints), x.view(ints))
+    assert torch.equal(out.view(ints), dp.dma_pipeline_copy_reference(x, 2).view(ints))
+
+
+_UNALIGNED = torch.zeros(64 * 512 + 1)[1:].view(64, 512)
+
+
+@pytest.mark.parametrize(
+    "x, iters, match",
+    [(_UNALIGNED, 1, "16-byte aligned"), (torch.zeros(64, 3), 1, "multiples of 16"),
+     (torch.zeros(512, 64).t(), 1, "contiguous"), (torch.zeros(8, 8, 4), 1, "rows, cols"),
+     (torch.zeros(64, 4), 0, "iters")],
+    ids=["unaligned", "12-byte-rows", "non-contiguous", "rank-3", "no-pass"],
+)
+def test_dma_wrapper_rejects_what_the_kernel_does_not_take(x, iters, match):
+    with pytest.raises(ValueError, match=match):
+        dp.dma_pipeline_copy(x, iters, 8, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape, iters, chunk_rows, slots",
+    [((32, 512), 2, 8, 2), ((32, 512), 1, 8, 1), ((32, 512), 1, 8, 4), ((32, 512), 3, 16, 2),
+     ((131072, 512), 1, 2048, 4), ((131072, 512), 2, 2048, 64)],
+)
+def test_dma_kernel_bit_identical_to_plain(cuda, shape, iters, chunk_rows, slots):
+    """A copy is bit for bit: compared as int32, NaN payloads included."""
+    x, ints = _bits(cuda, shape)
+    before = dp.launches
+    out = dp.dma_pipeline_copy(x, iters, chunk_rows, slots)
+    torch.cuda.synchronize()
+    assert dp.launches == before + 1
+    assert torch.equal(out.view(ints), dp.dma_pipeline_copy_reference(x, iters).view(ints))
+
+
+@pytest.mark.cuda
+def test_dma_kernel_copies_bf16(cuda):
+    x, ints = _bits(cuda, (256, 512), torch.bfloat16, seed=1)
+    out = dp.dma_pipeline_copy(x, 2, 64, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(ints), x.view(ints))
+
+
+@pytest.mark.cuda
+def test_dma_kernel_rejects_an_unaligned_view(cuda):
+    x = torch.zeros(64 * 512 + 1, device=cuda)[1:].view(64, 512)
+    before = dp.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        dp.dma_pipeline_copy(x, 1, 8, 1)
+    assert dp.launches == before

@@ -106,7 +106,7 @@ def test_long_context_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["check"] for s in samples} == {"longctx", "decode", "ring-attention"}
 
 
-@pytest.mark.parametrize("check", ["matmul", "serving"])
+@pytest.mark.parametrize("check", ["ulysses", "serving"])
 def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")
     assert rv.main() == 1
@@ -114,6 +114,46 @@ def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     assert ok_line["ok"]
     assert failed["check"] == check and not failed["ok"]
     assert failed["error"] == rv.NOT_PORTED and "skipped" not in failed
+
+
+def test_perf_probes_pass_on_cpu(cpu_gate, monkeypatch, capsys):
+    """matmul, hbm, hbm-dma and ring through the entry point under the
+    perf-probes pod's RESULTS_SCOPE: the reference's reader finds the
+    drop-box and the flight record at the reference's perf paths."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "matmul,hbm,hbm-dma,ring")
+    monkeypatch.setenv("RESULTS_SCOPE", "perf")
+    for var in ("HBM_SIZE_MB", "HBM_ITERS", "HBM_BEST_OF", "MATMUL_MIN_MFU"):
+        monkeypatch.delenv(var, raising=False)
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["matmul", "hbm", "hbm-dma", "ring"]
+    assert all(line["ok"] and line["backend"] == "cpu" for line in lines)
+    matmul, hbm, dma, ring = lines
+    assert [r["size"] for r in matmul["results"]] == [256] and matmul["mfu"] is None
+    assert hbm["size_mb"] == 8 * 1024 * 1024 / 1e6 and hbm["iters"] == 4  # the CPU's toy stream
+    assert dma["kernel"] == "plain" and dma["methodology"] == "pallas-dma-pipeline"
+    assert "skipped" in ring and ring["transport"] == "hbm-local"  # one CPU rank
+    assert jstatus.read_workload_results() is None  # the gating run's drop-box untouched
+    results = jstatus.read_workload_results("perf")
+    assert set(results["checks"]) == {"matmul", "hbm", "hbm-dma", "ring"}
+    samples = jstatus.read_flight_record("perf")
+    assert {s["check"] for s in samples} == {"matmul", "hbm", "hbm-dma", "ring"}
+    assert {s["phase"] for s in samples if s["check"] == "matmul"} >= {"compile", "step",
+                                                                       "result"}
+
+
+def test_probe_gates_on_cpu_are_report_only(cpu_gate, monkeypatch, capsys):
+    """The minimums are recorded but never enforced on the CPU (the gates
+    default to cuda), and the env sizes stay the card's."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "hbm,ring")
+    monkeypatch.setenv("HBM_SIZE_MB", "4096")  # a card's size: the CPU runs its toy stream
+    monkeypatch.setenv("HBM_MIN_GBPS", "1e9")
+    monkeypatch.setenv("RING_MIN_GBPS", "1e9")
+    assert rv.main() == 0
+    hbm, ring = _lines(capsys)
+    assert hbm["size_mb"] == 8 * 1024 * 1024 / 1e6
+    assert hbm["min_gbps"] == ring["min_gbps"] == 1e9
+    assert not hbm["gated"] and not ring["gated"]
 
 
 def test_start_barrier_times_out_alone(cpu_gate, monkeypatch, capsys, tmp_path):

@@ -14,6 +14,10 @@ NCCL on the cards, gloo on the CPU (where the tests run four ranks).
   fails the check instead of hanging the pod.
 - Rank 0's return value is the result; its flight samples come back with it
   and are replayed into the caller's recorder.
+
+``rotate`` is the ring hop both rings use (ring-attention's K/V rotation and
+the ring probe's payload): every rank sends to its successor and receives
+from its predecessor.
 """
 
 from __future__ import annotations
@@ -32,6 +36,25 @@ from multiprocessing.connection import wait
 import torch
 
 from tpu_operator_torch.obs import flight
+
+
+def rotate(*blocks):
+    """Pass each block one hop around the ring of ranks: send to rank + 1,
+    receive from rank - 1, all posted together (a blocking send before the
+    receive would deadlock).  Returns the received blocks.  Runs inside the
+    default process group, on every rank."""
+    import torch.distributed as dist
+
+    rank, p = dist.get_rank(), dist.get_world_size()
+    nxt, prv = (rank + 1) % p, (rank - 1) % p
+    received = [torch.empty_like(b) for b in blocks]
+    ops = []
+    for b, r in zip(blocks, received):
+        ops.append(dist.P2POp(dist.isend, b, nxt))
+        ops.append(dist.P2POp(dist.irecv, r, prv))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return received
 
 
 def _rank_main(fn, rank: int, world_size: int, device_type: str,

@@ -1,5 +1,5 @@
-"""The readiness gate's checks on PyTorch: vector-add, allreduce benchmark,
-sharded burn-in.  Port of the main-path subset of
+"""The readiness gate's checks on PyTorch (vector-add, allreduce benchmark,
+sharded burn-in) and the ring probe.  Port of the main-path subset of
 ``tpu_operator/workloads/collectives.py``.
 
 - ``device_count_check``  — cards CUDA initialized vs the promised count
@@ -10,6 +10,9 @@ sharded burn-in.  Port of the main-path subset of
 - ``burn_in``             — a (dp, mp)-sharded MLP trained for a few SGD
                             steps: cuBLAS matmuls plus the mp row-parallel
                             all-reduce and the dp gradient all-reduce
+- ``ring_benchmark``      — every card's buffer passed around the ring of
+                            cards over NCCL send/recv, each hop's payload
+                            verified exactly; per-link GB/s
 
 The reference runs one program over all local chips; here every local card
 is one rank (``_ranks``), and with one card the check runs in-process with no
@@ -246,6 +249,137 @@ def apply_allreduce_gate(result: dict, min_gbps: float) -> dict:
     return timing.apply_min_gate(
         result, metric="busbw_gbps", minimum=min_gbps,
         backends_env="ALLREDUCE_GATE_BACKENDS", label="busbw",
+        require_interconnect=True,
+    )
+
+
+# ---------------------------------------------------------------------------
+# ring exchange (per-link diagnostic)
+
+
+def ring_payload(n: int) -> list:
+    """The value each rank sends around the ring, as it rides it: 1 + rank
+    rounded to bf16 (integers above 256 are not bf16-exact, so the expected
+    sums are computed from the rounded values)."""
+    ranks = torch.arange(1, n + 1, dtype=torch.float32)
+    return ranks.to(torch.bfloat16).float().tolist()
+
+
+def ring_benchmark(
+    size_mb: float = 16.0,
+    iters: int = 4,
+    best_of: int = 3,
+    world_size: Optional[int] = None,
+    device=None,
+) -> dict:
+    """Pass the cards' buffers around the full ring and verify every hop's
+    payload: the per-LINK diagnostic the global all-reduce cannot give.
+
+    Each rank's buffer visits every other rank in order, and the f32 sum it
+    accumulates is exact only if EVERY link carried its payload intact.  The
+    rate is per hop and bottlenecked by the slowest link (every link moves
+    at each hop).  One rank per card; each hop posts its send and its
+    receive together (``batch_isend_irecv``).  Methodology as the reference:
+    ``iters`` revolutions per timed repetition ending in one readback, the
+    floor (the error's reduction and readback, no ring) subtracted,
+    best-of-N."""
+    device = resolve_device(device)
+    n = world_size or local_world_size(device)
+    if n == 1:
+        return {
+            "ok": True,
+            "devices": 1,
+            "skipped": "single card: no ring",
+            "transport": "hbm-local",
+            "backend": device.type,
+        }
+    values = ring_payload(n)
+    return _ranks.run(
+        _ring_rank, n, device.type, size_mb=size_mb, iters=iters, best_of=best_of,
+        values=values, distinct_total=float(sum(values)),
+    )
+
+
+def _ring_rank(
+    rank: int, n: int, device: torch.device,
+    size_mb: float, iters: int, best_of: int, values: list, distinct_total: float,
+) -> dict:
+    """One rank of the ring: it sends ``values[rank]`` and expects its
+    accumulator to hold ``distinct_total`` minus its own payload."""
+    elems_per_dev = max(128, int(size_mb * 1024 * 1024 / 2 / n))
+    elems_per_dev = (elems_per_dev + 127) // 128 * 128
+    # the ring payload is bf16 (the bandwidth under test); the accumulator
+    # f32, so rank sums stay exact (bf16 integers are exact only to 256)
+    x = torch.full((elems_per_dev,), values[rank], dtype=torch.bfloat16, device=device)
+    expected = distinct_total - x.float()
+
+    def ring() -> torch.Tensor:
+        buf, acc = x, None
+        for _ in range(iters):
+            # n-1 accumulating hops sum every other rank's buffer; the
+            # completing n-th hop brings mine home for the next revolution
+            acc = torch.zeros(elems_per_dev, dtype=torch.float32, device=device)
+            for _ in range(n - 1):
+                (buf,) = _ranks.rotate(buf)
+                acc += buf.float()
+            (buf,) = _ranks.rotate(buf)
+        return acc
+
+    def err(acc: torch.Tensor) -> float:
+        # the worst rank decides; one corrupted hop breaks the equality
+        e = (acc - expected).abs().max()
+        dist.all_reduce(e, op=dist.ReduceOp.MAX)
+        return float(e)
+
+    t_first = time.perf_counter()
+    acc0 = ring()  # first use: the NCCL send/recv set-up
+    err(acc0)
+    flight.record("ring", "compile", compile_s=time.perf_counter() - t_first)
+    # floor: the same reduction and readback on a finished accumulator
+    floor = min(timing.timed(lambda: err(acc0), device) for _ in range(max(2, best_of)))
+    raw = []
+    max_err = 0.0
+    hop_bytes = elems_per_dev * 2  # bf16 per rank per hop
+    for rep in range(best_of):
+        timing.sync(device)
+        t0 = time.perf_counter()
+        max_err = max(max_err, err(ring()))
+        raw.append(time.perf_counter() - t0)
+        flight.record(
+            "ring", "step", step=rep, step_s=raw[-1],
+            gbps=hop_bytes * iters * n / raw[-1] / 1e9,
+        )
+        flight.record_step(
+            "ring", step_seq=rep, wall_s=raw[-1],
+            phases={obs_profile.PHASE_COLLECTIVE_WAIT: raw[-1]},
+        )
+    # per-hop time: iters revolutions x n hops each (n-1 accumulating + 1
+    # completing)
+    times, overhead_dominated = timing.subtract_floor(raw, floor, per=iters * n)
+    return {
+        # integer payloads, f32 accumulation: the equality is exact by
+        # construction, so ANY deviation is a corrupted hop
+        "ok": max_err == 0.0,
+        "devices": n,
+        "size_mb": hop_bytes * n / 1e6,
+        "hops": iters * n,
+        "hop_ms": times[0] * 1e3,
+        "overhead_ms": floor * 1e3,
+        "overhead_dominated": overhead_dominated,
+        "link_gbps": hop_bytes / times[0] / 1e9,
+        "link_gbps_median": hop_bytes / times[len(times) // 2] / 1e9,
+        "max_error": max_err,
+        "transport": "nvlink",
+        "backend": device.type,
+    }
+
+
+def apply_ring_gate(result: dict, min_gbps: float) -> dict:
+    """RING_MIN_GBPS gate on the per-link rate (shared rule:
+    timing.apply_min_gate; never on a skipped single-card result)."""
+    return timing.apply_min_gate(
+        result, metric="link_gbps", minimum=min_gbps,
+        backends_env="RING_GATE_BACKENDS", label="ring link",
         require_interconnect=True,
     )
 

@@ -86,22 +86,6 @@ def _ring_group():
     return 0, 1
 
 
-def _rotate(*blocks):
-    """Pass each block one hop on: send to rank + 1, receive from rank - 1,
-    all posted together (a blocking send before the receive would
-    deadlock).  Returns the received blocks."""
-    rank, p = _ring_group()
-    nxt, prv = (rank + 1) % p, (rank - 1) % p
-    received = [torch.empty_like(b) for b in blocks]
-    ops = []
-    for b, r in zip(blocks, received):
-        ops.append(dist.P2POp(dist.isend, b, nxt))
-        ops.append(dist.P2POp(dist.irecv, r, prv))
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    return received
-
-
 def _lse_of(m, l):
     """logsumexp per query from the online-softmax state."""
     return m + torch.log(torch.where(l > 0, l, 1.0))
@@ -134,7 +118,7 @@ def _plain_ring_forward(q, k, v, causal: bool):
     # p - 1 fold-and-rotate hops, then the last fold WITHOUT the rotation
     for s in range(p - 1):
         m, l, o = consume(s, m, l, o, k, v)
-        k, v = _rotate(k, v)
+        k, v = _ranks.rotate(k, v)
     m, l, o = consume(p - 1, m, l, o, k, v)
     denom = torch.where(l > 0, l, 1.0)
     return (o / denom[..., None]).to(q.dtype), _lse_of(m, l)
@@ -157,7 +141,7 @@ def _kernel_ring_forward(q, k, v, causal: bool):
 
     for s in range(p - 1):
         consume(s)
-        k, v = _rotate(k, v)
+        k, v = _ranks.rotate(k, v)
     consume(p - 1)
     denom = torch.where(l > 0, l, 1.0)
     out = split_heads(o / denom[..., None], b, h)

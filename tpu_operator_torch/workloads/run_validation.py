@@ -10,13 +10,19 @@ Env (as the reference, plus ``TORCH_DEVICE``):
   ``vector-add,allreduce,burn-in``); the names are the reference's 18, and
   a check not yet ported fails with an error saying so; ported:
   ``vector-add``, ``allreduce``, ``burn-in``, ``ring-attention``,
-  ``longctx``, ``decode``
+  ``longctx``, ``decode`` and the post-ready perf probes ``matmul``,
+  ``hbm``, ``hbm-dma`` (kernel B2, report-only) and ``ring`` (the per-link
+  diagnostic)
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
   short-circuits the remaining checks
 - ``ALLREDUCE_SIZE_MB`` / ``ALLREDUCE_MIN_GBPS``, ``BURN_IN_STEPS`` /
   ``BURN_IN_SEED``: check knobs
+- ``MATMUL_MIN_MFU``, ``HBM_MIN_GBPS``, ``RING_SIZE_MB`` / ``RING_ITERS``
+  / ``RING_MIN_GBPS``: probe knobs; ``HBM_SIZE_MB`` / ``HBM_ITERS`` /
+  ``HBM_BEST_OF`` (and ``HBM_DMA_CHUNK_MB`` / ``HBM_DMA_SLOTS``) size hbm
+  and hbm-dma on a card, while the CPU runs their toy shapes
 - ``WORKLOAD_BUDGET_S``: stop STARTING new checks past this many seconds
   (skipped checks are recorded as skipped, not failed)
 - ``WORKLOAD_START_BARRIER`` / ``WORKLOAD_BARRIER_COUNT`` /
@@ -36,8 +42,8 @@ NOT_PORTED = "not yet ported to tpu_operator_torch"
 
 # the reference's checks this port does not run yet, in its dispatch order
 _UNPORTED = (
-    "transformer", "transformer-pp", "train", "matmul", "ulysses", "moe",
-    "pipeline", "ring", "hbm", "hbm-dma", "warm-pool", "serving",
+    "transformer", "transformer-pp", "train", "ulysses", "moe", "pipeline",
+    "warm-pool", "serving",
 )
 
 
@@ -48,7 +54,7 @@ def _not_ported() -> dict:
 def check_runners() -> dict:
     """Check name → zero-arg runner, the one source of truth for the
     dispatch AND the valid-name set (the same 18 names as the reference)."""
-    from tpu_operator_torch.workloads import collectives
+    from tpu_operator_torch.workloads import collectives, resolve_device
 
     def allreduce():
         return collectives.apply_allreduce_gate(
@@ -85,13 +91,65 @@ def check_runners() -> dict:
 
         return lc.decode_quick_check()
 
+    def matmul():
+        from tpu_operator_torch.workloads import matmul_bench
+
+        return matmul_bench.apply_mfu_gate(
+            matmul_bench.quick_benchmark(),
+            float(os.environ.get("MATMUL_MIN_MFU", "0")),
+        )
+
+    def ring():
+        return collectives.apply_ring_gate(
+            collectives.ring_benchmark(
+                size_mb=float(os.environ.get("RING_SIZE_MB", "16")),
+                iters=int(os.environ.get("RING_ITERS", "4")),
+            ),
+            float(os.environ.get("RING_MIN_GBPS", "0") or 0),
+        )
+
+    def hbm():
+        # env-sized on a card; the reference's toy stream on the CPU (256
+        # MiB x 1024 passes there take minutes and measure the host)
+        from tpu_operator_torch.workloads import hbm_bench
+
+        if resolve_device().type == "cuda":
+            result = hbm_bench.hbm_benchmark(
+                size_mb=float(os.environ.get("HBM_SIZE_MB", "256")),
+                iters=int(os.environ.get("HBM_ITERS", "1024")),
+                best_of=int(os.environ.get("HBM_BEST_OF", "3")),
+            )
+        else:
+            result = hbm_bench.quick_benchmark()
+        return hbm_bench.apply_hbm_gate(result, float(os.environ.get("HBM_MIN_GBPS", "0") or 0))
+
+    def hbm_dma():
+        # DMA-pipeline cross-check (report-only by design): same units AND
+        # same env-driven working set as hbm on a card; the reference's toy
+        # shapes through the plain version on the CPU
+        from tpu_operator_torch.workloads import hbm_dma as hd
+
+        if resolve_device().type == "cuda":
+            return hd.dma_stream_benchmark(
+                size_mb=float(os.environ.get("HBM_SIZE_MB", "256")),
+                iters=int(os.environ.get("HBM_ITERS", "1024")),
+                chunk_mb=float(os.environ.get("HBM_DMA_CHUNK_MB", "4")),
+                slots=int(os.environ.get("HBM_DMA_SLOTS", "4")),
+                best_of=int(os.environ.get("HBM_BEST_OF", "3")),
+            )
+        return hd.quick_benchmark()
+
     return {
         "vector-add": collectives.vector_add,
         "allreduce": allreduce,
         "burn-in": burn_in,
+        "matmul": matmul,
         "ring-attention": ring_attention,
         "longctx": longctx,
         "decode": decode,
+        "ring": ring,
+        "hbm": hbm,
+        "hbm-dma": hbm_dma,
         **{name: _not_ported for name in _UNPORTED},
     }
 
