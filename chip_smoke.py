@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the node readiness gate, the long-context
-attention checks and the post-ready perf probes, the way the validator runs
-them, and holds every kernel on those paths against its plain PyTorch
-version.  Phases, each fatal on failure:
+attention checks, the post-ready perf probes and training, the way the
+validator runs them, and holds every kernel on those paths against its
+plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
    name and power limit as nvidia-smi reports them
@@ -28,7 +28,15 @@ version.  Phases, each fatal on failure:
    hbm-dma on it, matmul finite with 0 < MFU <= 1, hbm and hbm-dma at
    0 < share of the memory rate <= 1.05 (above that is L2 reuse or a
    mis-count, not a fast card), ring max_error exactly 0
-6. kernel    — each kernel against its plain version on the card: the f32
+6. training  — ``run_validation.main()`` with transformer (3 steps, head dim
+   32, 16 tokens per card) and train (the reference's full width: batch 4,
+   2048 tokens, d_model 4096, d_hidden 16384, 32 heads, per card; 4 steps
+   x (first use + best of 3)): exit 0, one JSON line per check, the
+   drop-box, transformer losses finite and strictly falling, train ok with
+   a finite loss, tokens/s > 0 and attention on ``cuda-flash-fwd-bwd``,
+   and the launch counts of B3's f32 entry and of B4 above 0; prints every
+   step time
+7. kernel    — each kernel against its plain version on the card: the f32
    add bit-identical (tolerance 0) at the gate's shape, a ragged shape and
    a view one element off 16-byte alignment; the flash kernels at the main
    paths' shapes, ragged serving shapes and a fully masked block: per case,
@@ -38,12 +46,19 @@ version.  Phases, each fatal on failure:
    the state bit-identical; the DMA copy bit-identical (as int32 or int16
    views, tolerance 0) on random bit patterns with NaN payloads, at the toy
    shapes, the probe shape and in bf16, and the wrapper's alignment
-   rejections
-7. timing    — CUDA-event medians of each kernel, its plain version and the
+   rejections; B4 (f32 and bf16) and B3's f32 entry at the train hop
+   (128, 2048, 128) causal, the transformer check's (16, 16, 32), ragged
+   shapes and a fully masked block, which must leave the accumulators or
+   the state bit-identical: per output, max |kernel - plain| within 1e-4 of
+   max |plain| in f32 and 1e-2 in bf16 (B4: this hop's contribution, on
+   top of non-zero accumulators)
+8. timing    — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
-   (the larger of bytes over its memory rate and operations over its bf16
-   peak, from ``tpu_operator_torch/k8s/nodeinfo.py``); the DMA copy at the
-   probe's shape at 1 and 16 passes per launch
+   (the larger of bytes over its memory rate and operations over its peak
+   for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the DMA
+   copy at the probe's shape at 1 and 16 passes per launch; B4 and B3's
+   f32 entry at the train hop, B4's library call the backward alone of
+   ``scaled_dot_product_attention`` (its backend named)
 
 Launch counts are set to 0 just before each main path runs and read just
 after it; the kernel and timing phases' launches are not counted.  Prints
@@ -71,14 +86,19 @@ BIG_SHAPE = (65536, 512)  # 128 MiB per operand: past the 50 MB L2
 GATE_CHECKS = ("vector-add", "allreduce", "burn-in")
 ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
 PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
+TRAIN_CHECKS = ("transformer", "train")
 DMA_PROBE = ((131072, 512), 2048, 4)  # hbm-dma's shipping (shape, chunk_rows, slots): 256 MiB f32
 MAX_SHARE = 1.05           # of the memory rate: above it is L2 reuse or a mis-count
 PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
 DECODE_TAIL = 8            # decode's query rows at the end of the cache
 RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
+TRAIN_HOP = (128, 2048, 128)      # train's hop per card: batch 4 x 32 heads, 2048 tokens
+TRANSFORMER_HOP = (16, 16, 32)    # the transformer check's: batch 4 x 4 heads, 16 tokens
+TRAIN_WIDTH = (4096, 16384)       # train's d_model, d_hidden: the reference's TPU shapes
 OUT_TOL = 2e-2             # the checks' max_error: bf16 output, the reference's bound
 KERNEL_OUT_RTOL = 1e-2     # kernel vs plain: max|out - plain| / max|plain|, per case
 STATE_RTOL = 1e-5          # m, l, lse: f32 sums in another order
+F32_RTOL = 1e-4            # f32 kernels vs plain: max|out - plain| / max|plain|, per output
 
 
 def require(cond: bool, msg: str) -> None:
@@ -87,12 +107,14 @@ def require(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str) -> tuple:
-    """(memory bytes/s, bf16 FLOP/s) of the card, from the data sheets."""
+    """(memory bytes/s, bf16 FLOP/s, f32 CUDA-core FLOP/s) of the card, from
+    the data sheets."""
     from tpu_operator_torch.k8s import nodeinfo
 
     info = nodeinfo.generation_info(nodeinfo.generation_of(name))
-    require(info.hbm_gbps > 0, f"no memory rate on record for {name!r}")
-    return info.hbm_gbps * 1e9, info.peak_bf16_tflops * 1e12
+    require(info.hbm_gbps > 0 and info.peak_fp32_tflops > 0,
+            f"no memory rate or f32 peak on record for {name!r}")
+    return info.hbm_gbps * 1e9, info.peak_bf16_tflops * 1e12, info.peak_fp32_tflops * 1e12
 
 
 def device_phase():
@@ -249,6 +271,46 @@ def probes_phase(n_cards: int) -> int:
     return launches
 
 
+def training_phase(n_cards: int) -> tuple:
+    """Run transformer and train through the entry point; returns the
+    launches of B3's f32 entry and of B4, and train's result."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import flash_backward as fb
+
+    fa.block_update_f32_launches = 0
+    fb.backward_launches = 0
+    by, (forward, backward) = run_checks(
+        TRAIN_CHECKS, n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches))
+    tr, train = by["transformer"], by["train"]
+    if n_cards > 1:
+        # the checks ran in one process per card: rank 0 counted its own
+        for r in (tr, train):
+            forward += r["launches"]["flash_block_update_f32"]
+            backward += r["launches"]["flash_block_backward"]
+    require(forward > 0, "training ran without launching the f32 flash block update kernel")
+    require(backward > 0, "training ran without launching the flash block backward kernel")
+    losses = tr["losses"]
+    require(len(losses) == 3 and all(math.isfinite(v) for v in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])), f"transformer losses {losses}")
+    for label, r in (("transformer", tr), ("train", train)):
+        require(r["attention_kernel"] == "cuda-flash-fwd-bwd",
+                f"{label} ran attention on {r['attention_kernel']}")
+    require(train["ok"] and math.isfinite(train["loss"]) and math.isfinite(train["loss_last"]),
+            f"train loss {train['loss']}, {train['loss_last']}")
+    require(train["tokens_per_sec"] > 0, f"train at {train['tokens_per_sec']} tokens/s")
+    require((train["d_model"], train["d_hidden"]) == TRAIN_WIDTH
+            and train["seq"] == TRAIN_HOP[1] * train["mesh"]["mp"],
+            f"train ran at d_model {train['d_model']}, seq {train['seq']}")
+    print(f"transformer: losses {losses}, step times (s) {tr['step_s']} over "
+          f"{tr['devices']} card(s)", flush=True)
+    print(f"train: step times (ms, floor subtracted) {train['step_times_ms']}; best "
+          f"{train['step_time_ms']!r} ms, {train['tokens_per_sec']!r} tokens/s, "
+          f"{train['model_tflops']!r} model TFLOP/s, MFU {train.get('train_mfu')!r} (against "
+          f"the bf16 peak; the step is f32), launches on rank 0 {train['launches']}",
+          flush=True)
+    return forward, backward, train
+
+
 def kernel_phase() -> float:
     """Bit-for-bit parity of the kernel with its plain version."""
     import torch
@@ -387,6 +449,108 @@ def flash_kernel_phase() -> dict:
     return worst
 
 
+def _hop_inputs(gen, dtype, bh, tq, tk, d, q_off, k_off, causal) -> tuple:
+    """One ring hop as the remat backward sees it: q, k, v, dO in ``dtype``,
+    the forward's lse and dsum = rowsum(dO * O) (from the plain f32 fold),
+    and non-zero incoming accumulators dq, dk, dv."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    q, do = randn(bh, tq, d).to(dtype), randn(bh, tq, d).to(dtype)
+    k, v = randn(bh, tk, d).to(dtype), randn(bh, tk, d).to(dtype)
+    fresh = (torch.full((bh, tq), fa.NEG_INF, device="cuda"),
+             torch.zeros((bh, tq), device="cuda"), torch.zeros((bh, tq, d), device="cuda"))
+    m, l, o = fa.flash_block_update_reference(q.float(), k.float(), v.float(), q_off, k_off,
+                                              *fresh, causal)
+    denom = torch.where(l > 0, l, 1.0)
+    dsum = (do.float() * (o / denom[..., None])).sum(-1)
+    return (q, k, v, do, m + torch.log(denom), dsum), (randn(bh, tq, d), randn(bh, tk, d),
+                                                      randn(bh, tk, d))
+
+
+def train_kernel_phase() -> dict:
+    """B4 (f32 and bf16) and B3's f32 entry against their plain versions on
+    the card; returns the worst absolute error of each."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import flash_backward as fb
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    (bh, t, d), (tb, tt, td) = TRAIN_HOP, TRANSFORMER_HOP
+    cases = [
+        # label, bh, tq, tk, d, q_off, k_off, causal
+        (f"train hop {TRAIN_HOP} causal", bh, t, t, d, 0, 0, True),
+        (f"transformer {TRANSFORMER_HOP} causal", tb, tt, tt, td, 0, 0, True),
+        ("ragged (4, 136 x 200, 16) causal, partly visible", 4, 136, 200, 16, 200, 100, True),
+        ("ragged (2, 200 x 136, 64) causal, rows with no key", 2, 200, 136, 64, 0, 16, True),
+        ("ragged (3, 40 x 72, 8) non-causal", 3, 40, 72, 8, 0, 0, False),
+        ("fully masked (4, 136 x 200, 16)", 4, 136, 200, 16, 0, 200, True),
+    ]
+    worst = {"flash_block_backward": 0.0, "flash_block_update_f32": 0.0}
+    for dtype, tol in ((torch.float32, F32_RTOL), (torch.bfloat16, KERNEL_OUT_RTOL)):
+        for label, bh_, tq, tk, dd, q_off, k_off, causal in cases:
+            args, acc = _hop_inputs(gen, dtype, bh_, tq, tk, dd, q_off, k_off, causal)
+            mine = tuple(a.clone() for a in acc)
+            fb.flash_block_backward(*args, *mine, q_off, k_off, causal)
+            torch.cuda.synchronize()
+            label = f"{label} {str(dtype)[6:]}"
+            if "fully masked" in label:
+                same = all(torch.equal(a, b) for a, b in zip(mine, acc))
+                print(f"kernel flash_block_backward {label}: dq/dk/dv unchanged={same}",
+                      flush=True)
+                require(same, f"flash_block_backward changed the accumulators at {label}")
+                continue
+            ref = fb.flash_block_backward_reference(*args, *acc, q_off, k_off, causal)
+            # this hop's contribution, on top of the incoming accumulators
+            errs = {name: (_abs_err(a - x, b - x), _scaled_err(a - x, b - x))
+                    for name, a, b, x in zip(("dq", "dk", "dv"), mine, ref, acc)}
+            print(f"kernel flash_block_backward {label}: " + ", ".join(
+                f"{name} max_abs_err={e!r} (/max|plain| {r!r})" for name, (e, r) in errs.items()),
+                flush=True)
+            require(all(r <= tol for _, r in errs.values()),
+                    f"flash_block_backward differs from its plain version at {label}")
+            worst["flash_block_backward"] = max(worst["flash_block_backward"],
+                                                *(e for e, _ in errs.values()))
+            del args, acc, mine, ref
+
+    def fresh(bh_, tq, dd):
+        return (torch.full((bh_, tq), fa.NEG_INF, device="cuda"),
+                torch.zeros((bh_, tq), device="cuda"), torch.zeros((bh_, tq, dd), device="cuda"))
+
+    for label, bh_, tq, tk, dd, q_off, k_off, causal in cases:
+        q, k, v, k0, v0 = (torch.randn((bh_, n, dd), generator=gen, device="cuda")
+                           for n in (tq, tk, tk, tk, tk))
+        # the diagonal hops from a fresh state, as the ring's first hop; the
+        # others on a carried state (an earlier, fully visible block)
+        state = fresh(bh_, tq, dd)
+        if (q_off, k_off) != (0, 0):
+            state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *state, False)
+        m, l, o = (x.clone() for x in state)
+        fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, causal)
+        torch.cuda.synchronize()
+        if "fully masked" in label:
+            same = all(torch.equal(a, b) for a, b in zip((m, l, o), state))
+            print(f"kernel flash_block_update f32 {label}: state unchanged={same}", flush=True)
+            require(same, f"f32 flash_block_update changed the state at {label}")
+            continue
+        rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *state, causal)
+        out, ref = o / l[..., None], ro / rl[..., None]
+        errs = {"out": (_abs_err(out, ref), _scaled_err(out, ref)),
+                "l": (_abs_err(l, rl), _scaled_err(l, rl)), "m": (_abs_err(m, rm), _rel_err(m, rm))}
+        print(f"kernel flash_block_update f32 {label}: " + ", ".join(
+            f"{name} max_abs_err={e!r} (rel {r!r})" for name, (e, r) in errs.items()), flush=True)
+        require(errs["out"][1] <= F32_RTOL and errs["l"][1] <= F32_RTOL
+                and errs["m"][1] <= STATE_RTOL,
+                f"f32 flash_block_update differs from its plain version at {label}")
+        worst["flash_block_update_f32"] = max(worst["flash_block_update_f32"], errs["out"][0])
+    return worst
+
+
 def _random_bits(gen, shape, dtype):
     """Random bit patterns of ``dtype`` (f32 or bf16), a few NaN payloads
     (quiet and signalling, both signs) and infinities among them."""
@@ -506,7 +670,8 @@ def timing_phase(name: str) -> dict:
 
 def _bound(flops: float, nbytes: float, rates: tuple) -> dict:
     """The least time the card could take: the larger of bytes over its
-    memory rate and operations over its bf16 peak."""
+    memory rate (``rates[0]``) and operations over the peak for their type
+    (``rates[1]``)."""
     by_bytes, by_ops = nbytes / rates[0] * 1e3, flops / rates[1] * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
@@ -618,6 +783,82 @@ def dma_timing_phase(name: str) -> dict:
     return result
 
 
+def _sdpa_backward_ms(q, k, v, do) -> tuple:
+    """The backward alone of one causal ``scaled_dot_product_attention`` on
+    [1, BH, T, D], the forward outside the timed region; returns (ms, the
+    backward node that ran, which names the backend)."""
+    import torch
+    import torch.nn.functional as F
+
+    qq, kk, vv = (x.detach()[None].clone().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    go = do[None].to(out.dtype)
+    ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), go, retain_graph=True),
+                 reps=5, per=3)
+    return ms, out.grad_fn.name()
+
+
+def train_timing_phase(name: str) -> dict:
+    """B4 (f32 and bf16) and B3's f32 entry at the train hop, their plain
+    versions and the library calls."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import flash_backward as fb
+
+    mem, bf16_peak, f32_peak = peaks(name)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    bh, t, d = TRAIN_HOP
+    pairs = bh * t * (t + 1) // 2  # (query, key) pairs the causal mask keeps
+    rows = {}
+    for dtype, peak in ((torch.float32, f32_peak), (torch.bfloat16, bf16_peak)):
+        (q, k, v, do, lse, dsum), acc = _hop_inputs(gen, dtype, bh, t, t, d, 0, 0, True)
+        dq, dk, dv = acc
+        library_ms, backend = _sdpa_backward_ms(q, k, v, do)
+        row = {
+            "shape": [bh, t, d], "dtype": str(dtype)[6:], "causal": True,
+            "ms": time_ms(lambda: fb.flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv,
+                                                          0, 0, True), reps=5, per=3),
+            "plain_ms": time_ms(lambda: fb.flash_block_backward_reference(
+                q, k, v, do, lse, dsum, dq, dk, dv, 0, 0, True), reps=3, per=1),
+            "library_ms": library_ms,
+            "library_backend": backend,
+            "library_note": ("backward alone of scaled_dot_product_attention(is_causal=True): "
+                             "fresh dq/dk/dv, no accumulators"),
+            # q, k, v, dO read; lse, dsum read (f32); dq, dk, dv read and written (f32)
+            **_bound(10.0 * d * pairs, 4 * bh * t * d * q.element_size() + 2 * bh * t * 4
+                     + 6 * bh * t * d * 4, (mem, peak)),
+        }
+        rows[f"backward_{row['dtype']}"] = row
+        del q, k, v, do, lse, dsum, dq, dk, dv, acc
+    q, k, v = (torch.randn((bh, t, d), generator=gen, device="cuda") for _ in range(3))
+    m = torch.full((bh, t), fa.NEG_INF, device="cuda")
+    l = torch.zeros((bh, t), device="cuda")
+    o = torch.zeros((bh, t, d), device="cuda")
+    # the train hop on one card: its own (diagonal) block, causal; each timed
+    # launch folds it into the same state again, which costs the same
+    rows["update_f32"] = {
+        "shape": [bh, t, d], "dtype": "float32", "causal": True,
+        "ms": time_ms(lambda: fa.flash_block_update(q, k, v, 0, 0, m, l, o, True), reps=5, per=3),
+        "plain_ms": time_ms(lambda: fa.flash_block_update_reference(q, k, v, 0, 0, m, l, o,
+                                                                     True), reps=3, per=1),
+        "library_ms": None,
+        "library_note": ("no single PyTorch call folds a block into (m, l, o); "
+                         "nearest_library_ms is scaled_dot_product_attention's f32 causal "
+                         "forward at this shape"),
+        "nearest_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], is_causal=True), reps=5, per=3),
+        # q, k, v read; m, l, o read and written (all f32)
+        **_bound(4.0 * d * pairs, 3 * bh * t * d * 4 + 2 * (2 * bh * t * 4 + bh * t * d * 4),
+                 (mem, f32_peak)),
+    }
+    for key, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        print(json.dumps({"timing": f"train hop {key}", **row}), flush=True)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -629,13 +870,17 @@ def main() -> int:
     launches = gate_phase(count)
     forward_launches, update_launches = attention_phase(count)
     dma_launches = probes_phase(count)
+    train_fwd_launches, train_bwd_launches, _ = training_phase(count)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
     dma_err = dma_kernel_phase()
+    train_err = train_kernel_phase()
     t = timing_phase(name)
     ft = flash_timing_phase(name)
     dt = dma_timing_phase(name)
+    tt = train_timing_phase(name)
     source = "tpu_operator_torch/csrc/flash_attention.cu"
+    train_source = "tpu_operator_torch/csrc/flash_backward.cu"
 
     def entry(row: dict) -> dict:
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -681,6 +926,28 @@ def main() -> int:
         **entry(dt[1]),
         "library_note": dt[1]["library_note"],
         "shapes": {"iters=1": entry(dt[1]), "iters=16": entry(dt[16])},
+    }, {
+        "name": "flash_block_update_f32",
+        "route": "cuda",
+        "source": train_source,
+        "replaces": "tpu_operator/workloads/ring_attention.py:118",
+        "launches": train_fwd_launches,
+        "max_abs_err": train_err["flash_block_update_f32"],
+        **entry(tt["update_f32"]),
+        "library_note": tt["update_f32"]["library_note"],
+        "nearest_library_ms": tt["update_f32"]["nearest_library_ms"],
+    }, {
+        "name": "flash_block_backward",
+        "route": "cuda",
+        "source": train_source,
+        "replaces": "tpu_operator/workloads/ring_attention.py:577",
+        "launches": train_bwd_launches,
+        "max_abs_err": train_err["flash_block_backward"],
+        **entry(tt["backward_float32"]),
+        "library_backend": tt["backward_float32"]["library_backend"],
+        "dtypes": {"float32": entry(tt["backward_float32"]),
+                   "bfloat16": {**entry(tt["backward_bfloat16"]),
+                                "library_backend": tt["backward_bfloat16"]["library_backend"]}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)

@@ -253,3 +253,102 @@ def test_dma_kernel_rejects_an_unaligned_view(cuda):
     with pytest.raises(ValueError, match="16-byte aligned"):
         dp.dma_pipeline_copy(x, 1, 8, 1)
     assert dp.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the training path: the FA2 block backward (kernel B4) and B3's f32 entry
+
+from tpu_operator_torch.kernels import flash_backward as fb  # noqa: E402
+
+F32_RTOL = 1e-4  # f32 kernels: max|kernel - plain| / max|plain|, sums in another order
+BWD_RTOL = {torch.float32: F32_RTOL, torch.bfloat16: OUT_RTOL}
+
+# bh, tq, tk, d, q_off, k_off, causal: the train hop (one card), the
+# transformer check's, ragged shapes with partial masks, a non-causal hop
+TRAIN_CASES = [
+    (128, 2048, 2048, 128, 0, 0, True),
+    (16, 16, 16, 32, 0, 0, True),
+    (4, 136, 200, 16, 200, 100, True),
+    (2, 200, 136, 64, 0, 16, True),
+    (3, 40, 72, 8, 0, 0, False),
+]
+
+
+def _hop(device, dtype, bh, tq, tk, d, q_off, k_off, causal, seed=0):
+    """A hop's inputs as the remat backward sees them: q, k, v, dO, the
+    forward's lse and dsum = rowsum(dO * O), and non-zero incoming
+    accumulators."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device)
+
+    q, do = randn(bh, tq, d).to(dtype), randn(bh, tq, d).to(dtype)
+    k, v = randn(bh, tk, d).to(dtype), randn(bh, tk, d).to(dtype)
+    m, l, o = fa.flash_block_update_reference(q.float(), k.float(), v.float(), q_off, k_off,
+                                              *_fresh(bh, tq, d, device), causal)
+    denom = torch.where(l > 0, l, 1.0)
+    lse = m + torch.log(denom)
+    dsum = (do.float() * (o / denom[..., None])).sum(-1)
+    acc = (randn(bh, tq, d), randn(bh, tk, d), randn(bh, tk, d))
+    return (q, k, v, do, lse, dsum), acc
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bh, tq, tk, d, q_off, k_off, causal", TRAIN_CASES)
+def test_flash_block_backward_kernel_matches_plain(cuda, dtype, bh, tq, tk, d, q_off, k_off,
+                                                   causal):
+    """Each output's contribution (the kernel adds into the accumulators)
+    against the plain version's."""
+    args, acc = _hop(cuda, dtype, bh, tq, tk, d, q_off, k_off, causal)
+    ref = fb.flash_block_backward_reference(*args, *acc, q_off, k_off, causal)
+    mine = tuple(a.clone() for a in acc)
+    before = fb.backward_launches
+    fb.flash_block_backward(*args, *mine, q_off, k_off, causal)
+    torch.cuda.synchronize()
+    assert fb.backward_launches == before + 1
+    for got, want, a in zip(mine, ref, acc):
+        assert _scaled(got - a, want - a) <= BWD_RTOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_block_backward_fully_masked_hop_changes_nothing(cuda, dtype):
+    args, acc = _hop(cuda, dtype, 4, 136, 200, 16, 0, 136 + 64, True)
+    mine = tuple(a.clone() for a in acc)
+    fb.flash_block_backward(*args, *mine, 0, 136 + 64, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(mine, acc))
+
+
+# bh, tq, tk, d, q_off, k_off, causal, carried state
+FOLD_CASES = [
+    (128, 2048, 2048, 128, 0, 0, True, False),
+    (16, 16, 16, 32, 0, 0, True, False),
+    (4, 136, 200, 16, 200, 100, True, True),
+    (3, 40, 72, 8, 0, 0, False, True),
+    (4, 136, 200, 16, 0, 200, True, True),  # fully masked
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, tq, tk, d, q_off, k_off, causal, carried", FOLD_CASES)
+def test_flash_block_update_f32_kernel_matches_plain(cuda, bh, tq, tk, d, q_off, k_off, causal,
+                                                     carried):
+    q, k, v = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=3))
+    state = _fresh(bh, tq, d, cuda)
+    if carried:  # an earlier, fully visible block already folded in
+        _, k0, v0 = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=4))
+        state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *state, False)
+    m, l, o = (x.clone() for x in state)
+    before = (fa.block_update_launches, fa.block_update_f32_launches)
+    fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, causal)
+    torch.cuda.synchronize()
+    assert (fa.block_update_launches, fa.block_update_f32_launches) == (before[0], before[1] + 1)
+    if causal and k_off > q_off + tq:
+        assert all(torch.equal(a, b) for a, b in zip((m, l, o), state))
+        return
+    rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *state, causal)
+    assert _rel(m, rm) <= STATE_RTOL and _scaled(l, rl) <= F32_RTOL
+    assert _scaled(o / l[..., None], ro / rl[..., None]) <= F32_RTOL

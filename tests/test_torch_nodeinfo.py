@@ -31,3 +31,12 @@ def test_unknown_card_maps_to_zeros(name):
 def test_cpu_is_its_own_generation_with_no_peaks():
     assert nodeinfo.detect_generation("cpu") == "cpu"
     assert nodeinfo.generation_info("cpu") == nodeinfo.UNKNOWN_ACCELERATOR
+
+
+@pytest.mark.parametrize("generation, tflops", [
+    ("h100-sxm", 67.0), ("h100-pcie", 51.0), ("h100-nvl", 60.0), ("h200", 67.0), ("unknown", 0.0),
+])
+def test_f32_peaks_outside_the_tensor_cores(generation, tflops):
+    """The data sheets' f32 CUDA-core peaks: the denominator of the f32
+    flash kernels' operations bound."""
+    assert nodeinfo.generation_info(generation).peak_fp32_tflops == tflops

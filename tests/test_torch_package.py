@@ -50,8 +50,9 @@ def test_port_imports_neither_jax_nor_the_reference():
     names, leaked = proc.stdout.strip().splitlines()[-2:]
     for module in ("workloads.run_validation", "workloads.collectives", "workloads._ranks",
                    "workloads.ring_attention", "workloads.longctx", "workloads.matmul_bench",
-                   "workloads.hbm_bench", "workloads.hbm_dma", "kernels.vector_add",
-                   "kernels.flash_attention", "kernels.dma_pipeline", "kernels._build",
+                   "workloads.hbm_bench", "workloads.hbm_dma", "workloads.train_bench",
+                   "kernels.vector_add", "kernels.flash_attention", "kernels.flash_backward",
+                   "kernels.dma_pipeline", "kernels._build",
                    "k8s.nodeinfo", "obs.flight", "validator.status"):
         assert f"tpu_operator_torch.{module}" in names.split(",")
     assert leaked == "LEAKED []"

@@ -106,6 +106,25 @@ def test_long_context_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["check"] for s in samples} == {"longctx", "decode", "ring-attention"}
 
 
+def test_training_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
+    """transformer and train at their CPU shapes through the entry point,
+    with the reference's drop-box and flight record."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "transformer,train")
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["transformer", "train"]
+    assert all(line["ok"] and line["backend"] == "cpu" for line in lines)
+    transformer, train = lines
+    losses = transformer["losses"]
+    assert transformer["mesh"] == {"dp": 1, "mp": 1} and losses[-1] < losses[0]
+    assert train["attention_kernel"] == "plain" and train["tokens_per_sec"] > 0
+    results = jstatus.read_workload_results()
+    assert set(results["checks"]) == {"transformer", "train"}
+    samples = jstatus.read_flight_record()
+    assert {s["check"] for s in samples} == {"transformer", "train"}
+    assert {s["phase"] for s in samples if s["check"] == "train"} >= {"compile", "step", "result"}
+
+
 @pytest.mark.parametrize("check", ["ulysses", "serving"])
 def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")

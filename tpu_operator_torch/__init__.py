@@ -9,8 +9,10 @@ needed, the port keeps its own copy of the part it uses.
 Layout (mirrors ``tpu_operator/``):
 
 - ``workloads/``  — ``run_validation`` and the checks it runs: the readiness
-  gate (``collectives``) and long-context attention (``longctx``,
-  ``ring_attention``); the local multi-rank launcher (``_ranks``) and the
+  gate and the transformer step (``collectives``), long-context attention
+  and its training path (``longctx``, ``ring_attention``), the perf probes
+  (``matmul_bench``, ``hbm_bench``, ``hbm_dma``) and the training benchmark
+  (``train_bench``); the local multi-rank launcher (``_ranks``) and the
   shared timing rules (``timing``)
 - ``kernels/``    — the hand-written CUDA kernels, their plain PyTorch
   versions, and the ``nvcc`` + ``ctypes`` build (``_build``); sources live in

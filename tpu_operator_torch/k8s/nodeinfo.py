@@ -20,13 +20,14 @@ class AcceleratorInfo:
     hbm_gb: int              # device memory per card (GB)
     peak_bf16_tflops: float  # dense bf16 tensor-core peak
     hbm_gbps: float          # device memory bandwidth, GB/s
+    peak_fp32_tflops: float = 0.0  # f32 on the CUDA cores, outside the tensor cores
 
 
 ACCELERATORS: dict[str, AcceleratorInfo] = {
-    "h100-sxm": AcceleratorInfo("h100-sxm", 80, 989.0, 3350.0),
-    "h100-pcie": AcceleratorInfo("h100-pcie", 80, 756.0, 2000.0),
-    "h100-nvl": AcceleratorInfo("h100-nvl", 94, 835.0, 3900.0),
-    "h200": AcceleratorInfo("h200", 141, 989.0, 4800.0),
+    "h100-sxm": AcceleratorInfo("h100-sxm", 80, 989.0, 3350.0, 67.0),
+    "h100-pcie": AcceleratorInfo("h100-pcie", 80, 756.0, 2000.0, 51.0),
+    "h100-nvl": AcceleratorInfo("h100-nvl", 94, 835.0, 3900.0, 60.0),
+    "h200": AcceleratorInfo("h200", 141, 989.0, 4800.0, 67.0),
 }
 
 UNKNOWN_ACCELERATOR = AcceleratorInfo("unknown", 0, 0.0, 0.0)

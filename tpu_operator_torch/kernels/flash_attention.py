@@ -6,15 +6,17 @@ PyTorch versions.
   the full forward, causal or not, returning out and the log-sum-exp;
 - ``flash_block_update`` replaces ``_flash_block_kernel``
   (``tpu_operator/workloads/ring_attention.py:118-218``): one K/V block
-  folded into the carried (m, l, o) state, in place.
+  folded into the carried (m, l, o) state, in place.  bf16 q/k/v go to the
+  ``mma.sync`` entry here; f32 q/k/v, the transformer step's (its weights
+  are f32), to ``tpu_flash_block_update_f32`` in ``csrc/flash_backward.cu``.
 
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.
 
 Both run ``online_softmax_block_update`` (``ring_attention.py:86-115``),
-whose plain version is here too.  Layout ``[BH, T, D]``; q, k, v bf16, the
-state f32.  A wrapper takes the plain version for tensors on the CPU and
-launches its kernel for tensors on a card.
+whose plain version is here too.  Layout ``[BH, T, D]``; q, k, v bf16 (or
+f32 for the block update), the state f32.  A wrapper takes the plain version
+for tensors on the CPU and launches its kernel for tensors on a card.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: exp() of a fully masked
 # launches of each CUDA kernel in this process: a run shows it went through
 # the kernel by reading these before and after (chip_smoke.py sets them to 0)
 forward_launches = 0
-block_update_launches = 0
+block_update_launches = 0      # the bf16 entry
+block_update_f32_launches = 0  # the f32 entry
 
 MAX_HEAD_DIM = 128
 
@@ -147,11 +150,12 @@ def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal):
 # kernels
 
 
-def _check_qkv(q, k, v) -> None:
+def _check_qkv(q, k, v, dtypes=(torch.bfloat16,)) -> None:
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"flash kernels take bfloat16 q/k/v, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.dtype == k.dtype == v.dtype and q.dtype in dtypes):
+        raise TypeError(f"this flash kernel takes {' or '.join(map(str, dtypes))} q/k/v, "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 3 or k.shape != v.shape or k.dim() != 3:
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}: "
                          "expected [BH, T, D] each, k and v alike")
@@ -172,11 +176,17 @@ def _check_device(*tensors) -> None:
         raise ValueError("flash kernels take 16-byte-aligned tensors")
 
 
-def _bind() -> ctypes.CDLL:
-    lib, _ = _build.library("flash_attention")
-    for name, state in (("tpu_flash_forward_bf16", [ctypes.c_void_p] * 2),
-                        ("tpu_flash_block_update_bf16", [ctypes.c_void_p] * 3)):
+_ENTRIES = {  # source -> (entry, state pointers)
+    "flash_attention": (("tpu_flash_forward_bf16", 2), ("tpu_flash_block_update_bf16", 3)),
+    "flash_backward": (("tpu_flash_block_update_f32", 3),),
+}
+
+
+def _bind(source: str = "flash_attention") -> ctypes.CDLL:
+    lib, _ = _build.library(source)
+    for name, n_state in _ENTRIES[source]:
         fn = getattr(lib, name)
+        state = [ctypes.c_void_p] * n_state
         if fn.argtypes is None:
             fn.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, *state,
@@ -230,14 +240,14 @@ def flash_attention_local(q, k, v, causal=True, block_k=1024, block_q=1024, q_of
 def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal):
     """Fold one K/V block into the online-softmax state (kernel B3).
 
-    q/k/v ``[BH, T, D]`` bf16; m, l ``[BH, Tq]`` and o ``[BH, Tq, D]`` f32;
-    ``q_off``/``k_off`` are the blocks' global sequence offsets.  Updates m,
-    l and o IN PLACE (the counterpart of the TPU kernel's
-    ``input_output_aliases``) and returns them.  On a card the CUDA kernel
-    (current stream, not synchronized); on the CPU the plain version, copied
-    into the state."""
-    global block_update_launches
-    _check_qkv(q, k, v)
+    q/k/v ``[BH, T, D]``, all bf16 or all f32; m, l ``[BH, Tq]`` and o
+    ``[BH, Tq, D]`` f32; ``q_off``/``k_off`` are the blocks' global sequence
+    offsets.  Updates m, l and o IN PLACE (the counterpart of the TPU
+    kernel's ``input_output_aliases``) and returns them.  On a card the CUDA
+    kernel of q's dtype (current stream, not synchronized); on the CPU the
+    plain version, copied into the state."""
+    global block_update_launches, block_update_f32_launches
+    _check_qkv(q, k, v, dtypes=(torch.bfloat16, torch.float32))
     bh, tq, d = q.shape
     for name, t, shape in (("m", m, (bh, tq)), ("l", l, (bh, tq)), ("o", o, (bh, tq, d))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -251,15 +261,20 @@ def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal):
             t.copy_(new)
         return m, l, o
     _check_device(q, k, v, m, l, o)
-    lib = _bind()
+    f32 = q.dtype == torch.float32
+    lib = _bind("flash_backward" if f32 else "flash_attention")
+    entry = lib.tpu_flash_block_update_f32 if f32 else lib.tpu_flash_block_update_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tpu_flash_block_update_bf16(
+        rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
             bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)),
             1.0 / math.sqrt(d), stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash block update kernel launch failed: cudaError {rc}")
-    block_update_launches += 1
+    if f32:
+        block_update_f32_launches += 1
+    else:
+        block_update_launches += 1
     return m, l, o

@@ -1,9 +1,10 @@
 """The validation workloads on PyTorch, driven by ``run_validation``: the
 readiness gate (the vector-add kernel check, the NCCL allreduce benchmark,
 the sharded burn-in), the long-context checks (longctx prefill, decode,
-ring attention) on the flash kernels, and the post-ready perf probes
-(matmul MFU, the hbm stream, the hbm-dma cross-check on the DMA-pipeline
-kernel, the per-link ring).
+ring attention) on the flash kernels, the post-ready perf probes (matmul
+MFU, the hbm stream, the hbm-dma cross-check on the DMA-pipeline kernel, the
+per-link ring), and training (the flagship transformer step, its
+throughput benchmark) on the ring-remat flash kernels.
 
 Device selection has no fallback: the gate runs on ``cuda`` unless the
 caller asks for the CPU (``TORCH_DEVICE=cpu``, the counterpart of the

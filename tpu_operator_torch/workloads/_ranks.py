@@ -15,9 +15,10 @@ NCCL on the cards, gloo on the CPU (where the tests run four ranks).
 - Rank 0's return value is the result; its flight samples come back with it
   and are replayed into the caller's recorder.
 
-``rotate`` is the ring hop both rings use (ring-attention's K/V rotation and
-the ring probe's payload): every rank sends to its successor and receives
-from its predecessor.
+``rotate`` is the ring hop every ring uses (ring-attention's K/V rotation,
+the remat backward's K/V and dK/dV, the ring probe's payload): every rank
+sends to its successor and receives from its predecessor, in the default
+process group or in a subgroup (the transformer's mp ring).
 """
 
 from __future__ import annotations
@@ -38,20 +39,23 @@ import torch
 from tpu_operator_torch.obs import flight
 
 
-def rotate(*blocks):
+def rotate(*blocks, group=None):
     """Pass each block one hop around the ring of ranks: send to rank + 1,
     receive from rank - 1, all posted together (a blocking send before the
-    receive would deadlock).  Returns the received blocks.  Runs inside the
-    default process group, on every rank."""
+    receive would deadlock).  Returns the received blocks.  The ring is
+    ``group`` (its ranks in group order; the default process group when
+    None), and every rank of it calls this."""
     import torch.distributed as dist
 
-    rank, p = dist.get_rank(), dist.get_world_size()
+    rank, p = dist.get_rank(group), dist.get_world_size(group)
     nxt, prv = (rank + 1) % p, (rank - 1) % p
+    if group is not None:  # the peers' global ranks
+        nxt, prv = dist.get_global_rank(group, nxt), dist.get_global_rank(group, prv)
     received = [torch.empty_like(b) for b in blocks]
     ops = []
     for b, r in zip(blocks, received):
-        ops.append(dist.P2POp(dist.isend, b, nxt))
-        ops.append(dist.P2POp(dist.irecv, r, prv))
+        ops.append(dist.P2POp(dist.isend, b, nxt, group=group))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group=group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return received

@@ -1,6 +1,7 @@
 """The readiness gate's checks on PyTorch (vector-add, allreduce benchmark,
-sharded burn-in) and the ring probe.  Port of the main-path subset of
-``tpu_operator/workloads/collectives.py``.
+sharded burn-in), the ring probe and the flagship transformer layer's train
+step.  Port of the main-path subset of ``tpu_operator/workloads/
+collectives.py``.
 
 - ``device_count_check``  — cards CUDA initialized vs the promised count
 - ``vector_add``          — single-card sanity through the hand-written CUDA
@@ -13,6 +14,11 @@ sharded burn-in) and the ring probe.  Port of the main-path subset of
 - ``ring_benchmark``      — every card's buffer passed around the ring of
                             cards over NCCL send/recv, each hop's payload
                             verified exactly; per-link GB/s
+- ``transformer_burn_in`` — one pre-norm transformer layer trained for a few
+                            SGD steps over the (dp, mp) mesh: ring-remat
+                            attention over mp (kernels B3 and B4 on a card),
+                            the Megatron-SP MLP, exact gradients of the
+                            global loss
 
 The reference runs one program over all local chips; here every local card
 is one rank (``_ranks``), and with one card the check runs in-process with no
@@ -34,7 +40,7 @@ import torch.distributed as dist
 from tpu_operator_torch.kernels.vector_add import vector_add_kernel
 from tpu_operator_torch.obs import flight
 from tpu_operator_torch.obs import profile as obs_profile
-from tpu_operator_torch.workloads import _ranks, resolve_device, timing
+from tpu_operator_torch.workloads import _ranks, resolve_device, ring_attention, timing
 
 
 def local_world_size(device: torch.device) -> int:
@@ -466,12 +472,13 @@ def params_from_jax(w1: np.ndarray, w2: np.ndarray, mesh: Mesh) -> dict:
     h = d_hidden // mesh.mp
     j = mesh.coords[1]
 
-    def put(a: np.ndarray) -> torch.Tensor:
-        # a private f32 copy (bf16 inputs convert exactly)
-        a = np.array(a, dtype=np.float32, order="C")
-        return torch.from_numpy(a).to(mesh.device)
+    return {"w1": _put(w1[:, j * h:(j + 1) * h], mesh), "w2": _put(w2[j * h:(j + 1) * h, :], mesh)}
 
-    return {"w1": put(w1[:, j * h:(j + 1) * h]), "w2": put(w2[j * h:(j + 1) * h, :])}
+
+def _put(a: np.ndarray, mesh: Mesh) -> torch.Tensor:
+    """A private f32 copy of a host array on the mesh's device (bf16 inputs
+    convert exactly)."""
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C")).to(mesh.device)
 
 
 def _burn_in_weights(d_model: int, d_hidden: int, seed: int) -> tuple:
@@ -543,13 +550,14 @@ def _acceptance_run(
     first (a flat line means the step silently stopped training).  Every
     step leaves a flight sample; the first one carries first-use setup
     (cuBLAS handles, NCCL communicators), recorded as the compile phase."""
-    losses = []
+    losses, step_s = [], []
     t0 = time.perf_counter()
     t_step = t0
     for i in range(steps):
         loss, params = step(params, x)
         losses.append(float(loss))  # the readback waits for the step
         now = time.perf_counter()
+        step_s.append(now - t_step)
         flight.record(
             name, "compile" if i == 0 else "step", step=i,
             step_s=now - t_step, loss=losses[-1],
@@ -570,6 +578,7 @@ def _acceptance_run(
         "steps": steps,
         "losses": losses,
         "time_s": dt,
+        "step_s": step_s,
         "backend": mesh.device.type,
     }
 
@@ -629,3 +638,251 @@ def burn_in(
     w1, w2 = _burn_in_weights(d_model, d_hidden, seed)
     x = np.random.default_rng(seed + 1).standard_normal((batch, d_model), dtype=np.float32)
     return burn_in_run(w1, w2, x, steps=steps, world_size=world_size, device=device)
+
+
+# ---------------------------------------------------------------------------
+# The flagship transformer layer's train step (the reference's :622-806), over
+# the (dp, mp) mesh: batch over dp; the sequence over mp for attention
+# (ring-remat attention, K/V passed around the mp ring); Megatron tensor
+# parallelism over mp for the MLP in the Megatron-SP arrangement (gather the
+# sequence shards, column/row-split matmuls, reduce-scatter back).  The
+# attention projections are replicated, so their gradients sum over every
+# rank; the mp-sharded MLP slices sum over dp.
+
+TRANSFORMER_WEIGHTS = ("wq", "wk", "wv", "wo", "w1", "w2")
+
+# the single-tensor collectives under their newer names where PyTorch has
+# them (the older names warn there), else the older ones
+_all_gather_single = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+_reduce_scatter_single = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+
+
+def _rmsnorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """RMS norm computed in f32, returned in x's dtype (the reference's)."""
+    x32 = x.float()
+    return (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+
+
+def transformer_weights(d_model: int = 256, d_hidden: int = 1024, seed: int = 0) -> dict:
+    """One pre-norm layer's full weights, f32 numpy: standard normals from
+    ``default_rng(seed)`` times 1/sqrt(d_model), in the reference's order
+    and shapes.  f32 as the reference's are (its bf16 draws times a numpy
+    float64 scale promote to float32); its ``jax.random`` values are not
+    reproduced, and nothing depends on them."""
+    rng = np.random.default_rng(seed)
+    scale = np.float32(1.0 / np.sqrt(d_model))
+    shapes = {name: (d_model, d_model) for name in TRANSFORMER_WEIGHTS[:4]}
+    shapes.update(w1=(d_model, d_hidden), w2=(d_hidden, d_model))
+    return {name: rng.standard_normal(shape, dtype=np.float32) * scale
+            for name, shape in shapes.items()}
+
+
+def transformer_params_from_jax(weights: dict, mesh: Mesh) -> dict:
+    """This rank's shard of full host weights (the reference's, or
+    ``transformer_weights``'): the attention projections whole, ``w1``
+    split by columns over mp and ``w2`` by rows."""
+    return {**{name: _put(weights[name], mesh) for name in TRANSFORMER_WEIGHTS[:4]},
+            **params_from_jax(weights["w1"], weights["w2"], mesh)}
+
+
+def _gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The mp ranks' sequence shards [b, s, d] gathered along axis 1."""
+    b, s, d = x.shape
+    parts = torch.empty((mesh.mp * b, s, d), dtype=x.dtype, device=x.device)
+    _all_gather_single(parts, x.contiguous(), group=mesh.mp_group)
+    return parts.reshape(mesh.mp, b, s, d).transpose(0, 1).reshape(b, mesh.mp * s, d)
+
+
+def _scatter_seq(y: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum over the mp ranks of y [b, S, d], cut along axis 1: this
+    rank's sequence shard."""
+    b, s, d = y.shape
+    s_loc = s // mesh.mp
+    chunks = y.reshape(b, mesh.mp, s_loc, d).transpose(0, 1).reshape(mesh.mp * b, s_loc, d)
+    out = torch.empty((b, s_loc, d), dtype=y.dtype, device=y.device)
+    _reduce_scatter_single(out, chunks.contiguous(), group=mesh.mp_group)
+    return out
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The reference's ``all_gather(x, "mp", axis=1, tiled=True)``; its
+    transpose, the backward, is a reduce-scatter of the cotangent."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _gather_seq(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _scatter_seq(grad, ctx.mesh), None
+
+
+class _ScatterSeq(torch.autograd.Function):
+    """The reference's ``psum_scatter(y, "mp", scatter_dimension=1,
+    tiled=True)``; its transpose, the backward, is an all-gather."""
+
+    @staticmethod
+    def forward(ctx, y, mesh):
+        ctx.mesh = mesh
+        return _scatter_seq(y, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_seq(grad, ctx.mesh), None
+
+
+def _layer_fwd(xs, wq, wk, wv, wo, w1, w2, heads: int, mesh: Mesh, use_kernel: bool):
+    """The per-rank transformer layer on [b, s_loc, d]: ring-remat attention
+    over the mp ring, then the Megatron-SP MLP sandwich.  The casts are the
+    reference's, written out (JAX promotes bf16 @ f32 on its own): the
+    normalized input is bf16 and the weights f32, so every product and the
+    residual stream are f32."""
+    b, s_loc, d = xs.shape
+    hd = d // heads
+    xf = xs.to(torch.bfloat16)
+    h = _rmsnorm(xf).float()
+    q = (h @ wq).reshape(b, s_loc, heads, hd)
+    k = (h @ wk).reshape(b, s_loc, heads, hd)
+    v = (h @ wv).reshape(b, s_loc, heads, hd)
+    attn = ring_attention.ring_attention_remat(q, k, v, True, use_kernel, mesh.mp_group)
+    xa = xf.float() + attn.reshape(b, s_loc, d) @ wo
+    g = _rmsnorm(xa)
+    if mesh.mp > 1:
+        g = _GatherSeq.apply(g, mesh)
+    y = torch.relu(g @ w1) @ w2  # [b, S, d], partial over mp
+    if mesh.mp > 1:
+        y = _ScatterSeq.apply(y, mesh)
+    return xa + y
+
+
+def transformer_step(
+    mesh: Mesh, heads: int, params: dict, x: torch.Tensor, lr: float = 0.05,
+    use_kernel: Optional[bool] = None,
+) -> tuple:
+    """One SGD step of the layer on this rank's x [b, s_loc, d] (batch over
+    dp, sequence over mp).  Returns ``(loss, new_params)``, the loss the
+    global mean square over every rank's tokens.
+
+    The step follows the exact gradient of that global loss, as the
+    reference's does: there the loss is ``psum``-ed before
+    ``value_and_grad``, so a replicated weight's gradient is the sum of
+    every shard's contribution, and the ``pmean``s after it leave the sum
+    as it is (no dp scaling, unlike the burn-in).  Here each rank
+    differentiates its own share of the loss, the sequence collectives'
+    backwards carry the cross-rank terms, and the gradients are summed:
+    the attention weights over every rank, the MLP slices over dp.
+    ``use_kernel`` (default: on a card) runs attention on kernels B3 and
+    B4; otherwise the plain path."""
+    if use_kernel is None:
+        use_kernel = mesh.device.type == "cuda"
+    ws = [params[name].detach().requires_grad_() for name in TRANSFORMER_WEIGHTS]
+    b, s_loc, d = x.shape
+    out = _layer_fwd(x, *ws, heads, mesh, use_kernel)
+    count = b * mesh.dp * s_loc * mesh.mp * d
+    share = out.float().square().sum() / count
+    grads = torch.autograd.grad(share, ws)
+    new = {}
+    for name, w, g in zip(TRANSFORMER_WEIGHTS, ws, grads):
+        if name in ("w1", "w2"):
+            g = _sum(g, mesh.dp_group, mesh.dp)
+        else:
+            g = _sum(g, None, mesh.size)
+        new[name] = (w.detach().float() - lr * g.float()).to(w.dtype)
+    return _sum(share.detach(), None, mesh.size), new
+
+
+def _gather_mp(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """An mp-sharded weight put back together along ``dim``."""
+    if mesh.mp == 1:
+        return t
+    parts = [torch.empty_like(t) for _ in range(mesh.mp)]
+    dist.all_gather(parts, t.contiguous(), group=mesh.mp_group)
+    return torch.cat(parts, dim=dim)
+
+
+def _transformer_rank(
+    rank: int, n: int, device: torch.device, weights: dict, x: np.ndarray, heads: int,
+    steps: int, use_kernel: Optional[bool], out_path: str,
+) -> dict:
+    # f32 products in full f32 on the card, as on the reference's CPU
+    # backend, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(n, rank, device)
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    params = transformer_params_from_jax(weights, mesh)
+    i, j = mesh.coords
+    b, s = x.shape[0] // mesh.dp, x.shape[1] // mesh.mp
+    xs = torch.tensor(x[i * b:(i + 1) * b, j * s:(j + 1) * s], dtype=torch.bfloat16,
+                      device=device)
+    final = {}
+
+    def step(params, xs):
+        loss, new = transformer_step(mesh, heads, params, xs, use_kernel=use_kernel)
+        final.update(new)
+        return loss, new
+
+    launches = ring_attention.remat_launches()
+    result = _acceptance_run(mesh, step, params, xs, steps, name="transformer")
+    result["attention_kernel"] = ring_attention.remat_route(device, use_kernel)
+    # kernel launches in rank 0's process during this run
+    result["launches"] = {key: count - launches[key]
+                          for key, count in ring_attention.remat_launches().items()}
+    if out_path:
+        full = {name: final[name] for name in TRANSFORMER_WEIGHTS[:4]}
+        full.update(w1=_gather_mp(final["w1"], mesh, 1), w2=_gather_mp(final["w2"], mesh, 0))
+        if rank == 0:
+            np.savez(out_path, **{name: w.cpu().numpy() for name, w in full.items()})
+    return result
+
+
+def transformer_run(
+    weights: dict, x: np.ndarray, heads: int, steps: int = 3,
+    world_size: Optional[int] = None, use_kernel: Optional[bool] = None, device=None,
+    out_path: str = "",
+) -> dict:
+    """The acceptance run on given full host weights (``transformer_weights``'
+    names and shapes) and batch x [B, S, d], B split over dp and S over mp,
+    values rounded to bf16.  With ``out_path``, rank 0 saves the updated
+    full weights there (.npz, f32)."""
+    device = resolve_device(device)
+    n = world_size or local_world_size(device)
+    dp, mp = _split_dp_mp(n)
+    if x.shape[0] % dp or x.shape[1] % mp:
+        raise ValueError(f"x {x.shape} does not split over dp={dp}, mp={mp}")
+    # plain f32 host arrays: they travel to spawned ranks by pickle
+    kwargs = {
+        "weights": {name: np.asarray(weights[name], np.float32) for name in TRANSFORMER_WEIGHTS},
+        "x": np.asarray(x, np.float32), "heads": heads, "steps": steps,
+        "use_kernel": use_kernel, "out_path": out_path,
+    }
+    if n == 1:
+        return _transformer_rank(0, 1, device, **kwargs)
+    return _ranks.run(_transformer_rank, n, device.type, **kwargs)
+
+
+def transformer_burn_in(
+    world_size: Optional[int] = None,
+    steps: int = 3,
+    batch_per_dp: int = 4,
+    seq_per_mp: int = 16,
+    d_model: int = 128,
+    d_hidden: int = 256,
+    heads: int = 4,
+    use_kernel: Optional[bool] = None,
+    device=None,
+) -> dict:
+    """Acceptance run of the transformer step at the reference's defaults;
+    same contract as ``burn_in``, plus ``attention_kernel`` and the kernels'
+    ``launches``.  On a card attention runs on kernels B3 and B4 (head dim
+    32, 16 tokens per rank), where the reference's check takes its jnp path:
+    in the port a plain version never runs on the main path when a card is
+    present."""
+    device = resolve_device(device)
+    n = world_size or local_world_size(device)
+    dp, mp = _split_dp_mp(n)
+    weights = transformer_weights(d_model, d_hidden, seed=0)
+    x = np.random.default_rng(1).standard_normal(
+        (batch_per_dp * dp, seq_per_mp * mp, d_model), dtype=np.float32)
+    return transformer_run(weights, x, heads, steps, n, use_kernel, device)

@@ -1,6 +1,6 @@
 """Ring attention on PyTorch: sequence-parallel exact attention over the
-local cards.  Port of the forward half of
-``tpu_operator/workloads/ring_attention.py`` (``:20-458``).
+local cards, and its memory-efficient training path.  Port of
+``tpu_operator/workloads/ring_attention.py``.
 
 The sequence axis is sharded over a ring of ranks, one per card
 (``_ranks``; NCCL on the cards, gloo on the CPU): every rank holds one block
@@ -13,7 +13,14 @@ no rotation.
 
 The fold is the hand-written kernel B3 (``kernels/flash_attention.py``) in
 the ``[B*H, T, D]`` layout, or the plain f32 path (``_plain_ring_forward``),
-the reference's own oracle.  The remat backward (kernel B4) is not ported.
+the reference's own oracle.
+
+Training (``ring_attention_remat``, the reference's ``:461-740``) saves only
+(q, k, v, out, lse) in the forward and recomputes each hop's scores in a
+second ring pass: the FlashAttention-2 block backward per hop, kernel B4
+(``kernels/flash_backward.py``) or the plain f32 path.  dK/dV travel with
+their K/V block and come home after a full revolution.  Every ring runs over
+a process group (the default one, or the transformer's mp group).
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from tpu_operator_torch.kernels.flash_attention import (  # noqa: F401  (re-expo
     flash_block_update,
     online_softmax_block_update,
 )
+from tpu_operator_torch.kernels.flash_backward import flash_block_backward
 from tpu_operator_torch.obs import flight
 from tpu_operator_torch.workloads import _ranks, resolve_device
 
@@ -78,9 +86,11 @@ def _hop_scores(q32, k, scale, causal, q_pos, src, block):
     return scores
 
 
-def _ring_group():
-    """(rank, size) of the ring: the default process group, or one rank
-    when there is none."""
+def _ring_group(group=None):
+    """(rank, size) of the ring: ``group``, else the default process group,
+    else one rank when there is none."""
+    if group is not None:
+        return dist.get_rank(group), dist.get_world_size(group)
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     return 0, 1
@@ -91,10 +101,10 @@ def _lse_of(m, l):
     return m + torch.log(torch.where(l > 0, l, 1.0))
 
 
-def _plain_ring_forward(q, k, v, causal: bool):
+def _plain_ring_forward(q, k, v, causal: bool, group=None):
     """The plain ring forward: (out [B, T, H, D], lse [B, T, H]), all math
     in f32 on [B, T, H] state, as the reference's jnp path."""
-    idx, p = _ring_group()
+    idx, p = _ring_group(group)
     b, block, h, d = q.shape
     scale = 1.0 / math.sqrt(d)
     q32 = q.float()
@@ -118,16 +128,16 @@ def _plain_ring_forward(q, k, v, causal: bool):
     # p - 1 fold-and-rotate hops, then the last fold WITHOUT the rotation
     for s in range(p - 1):
         m, l, o = consume(s, m, l, o, k, v)
-        k, v = _ranks.rotate(k, v)
+        k, v = _ranks.rotate(k, v, group=group)
     m, l, o = consume(p - 1, m, l, o, k, v)
     denom = torch.where(l > 0, l, 1.0)
     return (o / denom[..., None]).to(q.dtype), _lse_of(m, l)
 
 
-def _kernel_ring_forward(q, k, v, causal: bool):
+def _kernel_ring_forward(q, k, v, causal: bool, group=None):
     """The ring forward on kernel B3: (out [B, T, H, D], lse [B, T, H]), the
     layouts of ``_plain_ring_forward``."""
-    idx, p = _ring_group()
+    idx, p = _ring_group(group)
     b, block, h, d = q.shape
     m = torch.full((b * h, block), NEG_INF, dtype=torch.float32, device=q.device)
     l = torch.zeros((b * h, block), dtype=torch.float32, device=q.device)
@@ -141,7 +151,7 @@ def _kernel_ring_forward(q, k, v, causal: bool):
 
     for s in range(p - 1):
         consume(s)
-        k, v = _ranks.rotate(k, v)
+        k, v = _ranks.rotate(k, v, group=group)
     consume(p - 1)
     denom = torch.where(l > 0, l, 1.0)
     out = split_heads(o / denom[..., None], b, h)
@@ -152,14 +162,140 @@ def _kernel_ring_forward(q, k, v, causal: bool):
     return out.to(q.dtype), _lse_of(split2(m), split2(l))
 
 
-def ring_attention_sharded(q, k, v, causal: bool, use_kernel: bool = False) -> torch.Tensor:
+def ring_attention_sharded(q, k, v, causal: bool, use_kernel: bool = False,
+                           group=None) -> torch.Tensor:
     """The per-rank program: this rank's [B, T/p, H, D] blocks in, its block
-    of the output out.  Runs over the default process group (one rank when
-    there is none).  ``use_kernel`` folds through kernel B3; otherwise the
-    plain path, its reference."""
+    of the output out.  Runs over ``group`` (default: the default process
+    group; one rank when there is none).  ``use_kernel`` folds through
+    kernel B3; otherwise the plain path, its reference."""
     forward = _kernel_ring_forward if use_kernel else _plain_ring_forward
-    out, _ = forward(q, k, v, causal)
+    out, _ = forward(q, k, v, causal, group)
     return out
+
+
+# ---------------------------------------------------------------------------
+# The memory-efficient training path (the reference's custom VJP, :461-740).
+# Autograd through the forward's loop would keep every hop's residuals; the
+# Ring Attention recipe instead saves (q, k, v, out, lse) and recomputes each
+# hop's scores in a second ring pass.  K/V rotate p - 1 times as in the
+# forward; dK/dV travel with their block for all p rotations, the last one
+# peeled (no K/V rotation after the last hop), so every block's gradient
+# lands on the rank that owns the block.
+
+
+def _plain_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
+    """The plain remat backward (the reference's ``_remat_bwd``, :502-561):
+    (dq, dk, dv) in q's layout and dtypes, all math in f32 on [B, T, H]."""
+    idx, p = _ring_group(group)
+    b, block, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    q32, do32 = q.float(), dout.float()
+    # D_i = rowsum(dO * O): the softmax-jacobian correction term
+    dsum = (do32 * out.float()).sum(-1).permute(0, 2, 1)[..., None]  # [B, H, Tq, 1]
+    lse_b = lse.permute(0, 2, 1)[..., None]
+    q_pos = idx * block + torch.arange(block, device=q.device)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+
+    def consume(s, dq, dk, dv, k, v):
+        src = (idx - s) % p
+        k32, v32 = k.float(), v.float()
+        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block)
+        # exact probabilities from the SAVED lse; a fully masked row whose
+        # lse collapsed to NEG_INF is guarded like the forward
+        prob = torch.where(scores <= NEG_INF * 0.5, 0.0, torch.exp(scores - lse_b))
+        dv = dv + torch.einsum("bhqk,bqhd->bkhd", prob, do32)
+        dprob = torch.einsum("bqhd,bkhd->bhqk", do32, v32)
+        dscores = prob * (dprob - dsum)
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", dscores, k32) * scale
+        dk = dk + torch.einsum("bhqk,bqhd->bkhd", dscores, q32) * scale
+        return dq, dk, dv
+
+    for s in range(p - 1):
+        dq, dk, dv = consume(s, dq, dk, dv, k, v)
+        k, v, dk, dv = _ranks.rotate(k, v, dk, dv, group=group)
+    dq, dk, dv = consume(p - 1, dq, dk, dv, k, v)
+    if p > 1:  # the accumulators' homing rotation
+        dk, dv = _ranks.rotate(dk, dv, group=group)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _kernel_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
+    """The remat backward on kernel B4 (the reference's
+    ``_remat_bwd_pallas``, :686-737): the merged layout throughout, dq/dk/dv
+    f32 accumulators that the kernel updates in place, the same rotation as
+    ``_plain_ring_backward``."""
+    idx, p = _ring_group(group)
+    b, block, h, d = q.shape
+    qm, km, vm, dom = merge_heads(q), merge_heads(k), merge_heads(v), merge_heads(dout)
+    # D_i = rowsum(dO * O) in f32, outside the kernel as in the reference
+    dsum = (dom.float() * merge_heads(out).float()).sum(-1)
+    lsem = lse.permute(0, 2, 1).reshape(b * h, block).contiguous()
+    dq = torch.zeros(qm.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(km.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(vm.shape, dtype=torch.float32, device=q.device)
+
+    def consume(s, dk, dv, km, vm):
+        src = (idx - s) % p
+        flash_block_backward(qm, km, vm, dom, lsem, dsum, dq, dk, dv, idx * block, src * block,
+                             causal)
+
+    for s in range(p - 1):
+        consume(s, dk, dv, km, vm)
+        km, vm, dk, dv = _ranks.rotate(km, vm, dk, dv, group=group)
+    consume(p - 1, dk, dv, km, vm)
+    if p > 1:
+        dk, dv = _ranks.rotate(dk, dv, group=group)
+    return (split_heads(dq, b, h).to(q.dtype), split_heads(dk, b, h).to(k.dtype),
+            split_heads(dv, b, h).to(v.dtype))
+
+
+class RingAttentionRemat(torch.autograd.Function):
+    """Ring attention with an O(1)-residual backward: the forward (kernel B3
+    or the plain path) saves only (q, k, v, out, lse); the backward makes a
+    second ring pass (kernel B4 or the plain path).  Every rank of the ring
+    calls forward and backward in the same order."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, use_kernel, group):
+        forward = _kernel_ring_forward if use_kernel else _plain_ring_forward
+        out, lse = forward(q, k, v, causal, group)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.use_kernel, ctx.group = causal, use_kernel, group
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        backward = _kernel_ring_backward if ctx.use_kernel else _plain_ring_backward
+        dq, dk, dv = backward(*ctx.saved_tensors, dout, ctx.causal, ctx.group)
+        return dq, dk, dv, None, None, None
+
+
+def ring_attention_remat(q, k, v, causal: bool, use_kernel: bool = False,
+                         group=None) -> torch.Tensor:
+    """``ring_attention_sharded`` with the memory-efficient backward; the
+    per-rank program on [B, T/p, H, D] blocks over ``group``.
+    ``use_kernel`` runs the forward on B3 and the backward on B4."""
+    return RingAttentionRemat.apply(q, k, v, causal, use_kernel, group)
+
+
+def remat_launches() -> dict:
+    """Launches so far in this process of the two kernels the training path
+    runs on f32: B3's f32 entry and B4."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import flash_backward as fb
+
+    return {"flash_block_update_f32": fa.block_update_f32_launches,
+            "flash_block_backward": fb.backward_launches}
+
+
+def remat_route(device: torch.device, use_kernel: bool) -> str:
+    """What ran the remat attention: the kernels on a card, their plain
+    versions on the CPU, or the plain ring path."""
+    if not use_kernel:
+        return "plain"
+    return "cuda-flash-fwd-bwd" if device.type == "cuda" else "plain-flash-fwd-bwd"
 
 
 def _ring_rank(rank: int, n: int, device: torch.device, qkv, causal: bool,

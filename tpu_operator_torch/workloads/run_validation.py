@@ -10,9 +10,11 @@ Env (as the reference, plus ``TORCH_DEVICE``):
   ``vector-add,allreduce,burn-in``); the names are the reference's 18, and
   a check not yet ported fails with an error saying so; ported:
   ``vector-add``, ``allreduce``, ``burn-in``, ``ring-attention``,
-  ``longctx``, ``decode`` and the post-ready perf probes ``matmul``,
-  ``hbm``, ``hbm-dma`` (kernel B2, report-only) and ``ring`` (the per-link
-  diagnostic)
+  ``longctx``, ``decode``, the post-ready perf probes ``matmul``, ``hbm``,
+  ``hbm-dma`` (kernel B2, report-only) and ``ring`` (the per-link
+  diagnostic), and training: ``transformer`` (the flagship layer's dp +
+  ring-attention sp + Megatron-SP step, kernels B3 and B4 on a card) and
+  ``train`` (its tokens/s and MFU at the reference's full width on a card)
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
@@ -41,10 +43,7 @@ import time
 NOT_PORTED = "not yet ported to tpu_operator_torch"
 
 # the reference's checks this port does not run yet, in its dispatch order
-_UNPORTED = (
-    "transformer", "transformer-pp", "train", "ulysses", "moe", "pipeline",
-    "warm-pool", "serving",
-)
+_UNPORTED = ("transformer-pp", "ulysses", "moe", "pipeline", "warm-pool", "serving")
 
 
 def _not_ported() -> dict:
@@ -69,6 +68,13 @@ def check_runners() -> dict:
             steps=int(os.environ.get("BURN_IN_STEPS", "3") or 3),
             seed=int(os.environ.get("BURN_IN_SEED", "0") or 0),
         )
+
+    def train():
+        # end-to-end training throughput: tokens/sec + training MFU of the
+        # flagship step at the reference's full width on a card
+        from tpu_operator_torch.workloads import train_bench
+
+        return train_bench.quick_check()
 
     def ring_attention():
         # sequence-parallel exact attention over the local cards, one rank
@@ -143,6 +149,10 @@ def check_runners() -> dict:
         "vector-add": collectives.vector_add,
         "allreduce": allreduce,
         "burn-in": burn_in,
+        # the flagship layer: dp batch + mp ring-attention sequence
+        # parallelism + Megatron-SP MLP in one train step
+        "transformer": collectives.transformer_burn_in,
+        "train": train,
         "matmul": matmul,
         "ring-attention": ring_attention,
         "longctx": longctx,
