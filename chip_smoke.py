@@ -11,16 +11,19 @@ plain PyTorch version.  Phases, each fatal on failure:
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
    name and power limit as nvidia-smi reports them
 2. build     — compiles every source in ``tpu_operator_torch/csrc`` with
-   nvcc, one process per source, all started together
+   nvcc, one process per source, all started together; prints ptxas's
+   registers and spills of the wgmma kernel and fails if it spills at D 128
 3. gate      — ``run_validation.main()`` with vector-add, allreduce and
    burn-in at their shipping sizes and EXPECTED_DEVICES set: exit 0, one
    JSON line per check, a drop-box holding all of them, finite outputs that
    agree with a float64 reference, and the vector_add launch count above 0
 4. attention — ``run_validation.main()`` with longctx (32k prefill), decode
    (32k cache, 1024 chained decodes) and ring-attention (512 tokens, 4
-   heads, head dim 128 per card): exit 0, one JSON line per check, the
-   drop-box, longctx spot tiles and ring within 2e-2 of their references,
-   finite decode output, and both flash kernels' launch counts above 0
+   heads, head dim 128 per card), one check per run: exit 0, one JSON line
+   per check, the drop-box, longctx spot tiles and ring within 2e-2 of
+   their references, finite decode output; longctx launched the flash
+   forward only on its ``wgmma`` path and decode only on its ``split``
+   path, each count above 0, and ring-attention the block update
 5. probes    — ``run_validation.main()`` with matmul, hbm, hbm-dma (and
    ring on more than one card) at their shipping sizes under
    RESULTS_SCOPE=perf: exit 0, one JSON line per check, the perf drop-box
@@ -39,7 +42,11 @@ plain PyTorch version.  Phases, each fatal on failure:
 7. kernel    — each kernel against its plain version on the card: the f32
    add bit-identical (tolerance 0) at the gate's shape, a ragged shape and
    a view one element off 16-byte alignment; the flash kernels at the main
-   paths' shapes, ragged serving shapes and a fully masked block: per case,
+   paths' shapes (the forward through its plan, the path printed), ragged
+   serving shapes, each forward path at the shapes that stress it (Tq not
+   a multiple of 128, diagonals off the tile grid, every row masked: out
+   exactly 0 and lse exactly -1e30; a one-row tail, a ragged cache, BH 1,
+   non-causal) and a fully masked block: per case,
    max |out - plain| within 1e-2 of max |plain| (one bf16 step at the
    largest output is at most 2^-7 = 7.8e-3 of it), and m, l, lse within
    1e-5 relative (f32 sums in another order); the fully masked block leaves
@@ -55,7 +62,9 @@ plain PyTorch version.  Phases, each fatal on failure:
 8. timing    — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
-   for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the DMA
+   for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
+   forward's planned path at the prefill and decode shapes beside its
+   ``mma.sync`` kernel at the same shape (``mma_ms``); the DMA
    copy at the probe's shape at 1 and 16 passes per launch; B4 and B3's
    f32 entry at the train hop, B4's library call the backward alone of
    ``scaled_dot_product_attention`` (its backend named)
@@ -85,6 +94,7 @@ GATE_SHAPE = (2048, 512)  # vector_add's default n = 1 << 20
 BIG_SHAPE = (65536, 512)  # 128 MiB per operand: past the 50 MB L2
 GATE_CHECKS = ("vector-add", "allreduce", "burn-in")
 ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
+ATTENTION_PATHS = ("wgmma", "split", None)  # B5's planned path in each check
 PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
 TRAIN_CHECKS = ("transformer", "train")
 DMA_PROBE = ((131072, 512), 2048, 4)  # hbm-dma's shipping (shape, chunk_rows, slots): 256 MiB f32
@@ -143,6 +153,17 @@ def build_phase() -> None:
         if built[name].log.strip():
             print(built[name].log.strip(), flush=True)
     print(f"build: {len(sources)} sources in {wall:.2f}s wall", flush=True)
+    # the wgmma kernel's registers and spills (D 128 and 64), from ptxas -v
+    lines = built["flash_forward_sm90"].log.splitlines()
+    if not lines:
+        print("build: flash_forward_sm90 was already built: no ptxas lines", flush=True)
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and "flash_wgmma_kernel" in line:
+            d = 128 if "ILi128E" in line else 64
+            usage = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+            print(f"build: wgmma kernel D {d}: {usage}", flush=True)
+            require(d != 128 or "0 bytes spill stores, 0 bytes spill loads" in usage,
+                    "the wgmma kernel spills at D 128")
 
 
 def run_checks(checks: tuple, n_cards: int, counters, scope: str = "") -> tuple:
@@ -215,19 +236,31 @@ def gate_phase(n_cards: int) -> int:
 
 
 def attention_phase(n_cards: int) -> tuple:
-    """Run the long-context checks through the entry point; returns the
-    launches of the flash forward and of the block update."""
+    """Run the long-context checks through the entry point, one check per
+    run so that each path's launches are its own; returns the launches of
+    the flash forward, of each of its paths, and of the block update."""
     from tpu_operator_torch.kernels import flash_attention as fa
 
-    fa.forward_launches = 0
-    fa.block_update_launches = 0
-    by, (forward, update) = run_checks(
-        ATTENTION_CHECKS, n_cards, lambda: (fa.forward_launches, fa.block_update_launches))
+    def counts():
+        return fa.forward_launches, dict(fa.forward_path_launches), fa.block_update_launches
+
+    by, forward, paths, update = {}, 0, dict.fromkeys(fa.forward_path_launches, 0), 0
+    for check, path in zip(ATTENTION_CHECKS, ATTENTION_PATHS):
+        fa.forward_launches = fa.block_update_launches = 0
+        fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
+        lines, (n, by_path, n_update) = run_checks((check,), n_cards, counts)
+        by.update(lines)
+        if path is not None:
+            # B5 on its planned path, and on no other
+            require(by_path[path] > 0 and by_path[path] == n,
+                    f"{check} launched the flash forward {by_path} (expected only {path!r})")
+        forward += n
+        update += n_update
+        paths = {key: paths[key] + by_path[key] for key in paths}
     ring = by["ring-attention"]
     if ring["devices"] > 1:
         # the ring ran in one process per card: rank 0 counted its own
         update += ring["launches"]
-    require(forward > 0, "longctx and decode ran without launching the flash forward kernel")
     require(update > 0, "ring-attention ran without launching the flash block update kernel")
     lc, dec = by["longctx"], by["decode"]
     require(lc["max_error"] < OUT_TOL, f"longctx spot tiles off by {lc['max_error']}")
@@ -236,8 +269,9 @@ def attention_phase(n_cards: int) -> tuple:
     require(ring["kernel"] == "cuda-flash", f"ring-attention folded with {ring['kernel']}")
     print(f"attention: longctx {lc['attn_tflops']!r} attn-TFLOP/s, decode "
           f"{dec['decode_us']!r} us/token ({dec['cache_gbps']!r} GB/s), ring max_error "
-          f"{ring['max_error']!r} over {ring['devices']} card(s)", flush=True)
-    return forward, update
+          f"{ring['max_error']!r} over {ring['devices']} card(s); flash forward launches by "
+          f"path {paths}", flush=True)
+    return forward, paths, update
 
 
 def probes_phase(n_cards: int) -> int:
@@ -376,31 +410,61 @@ def flash_kernel_phase() -> dict:
         return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
 
     worst = {"flash_attention_local": 0.0, "flash_block_update": 0.0}
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     bh, t, d = PREFILL
+    dec_off = t - DECODE_TAIL
     forward_cases = [
-        # label, bh, tq, tk, d, causal, q_off, block_q, block_k
-        (f"prefill {PREFILL} causal", bh, t, t, d, True, 0, 1024, 1024),
-        (f"({bh}, 4096, {d}) causal", bh, 4096, 4096, d, True, 0, 1024, 1024),
-        (f"({bh}, 4096, {d}) non-causal", bh, 4096, 4096, d, False, 0, 1024, 1024),
-        (f"decode tail {DECODE_TAIL} x {t}", bh, DECODE_TAIL, t, d, True, t - DECODE_TAIL,
+        # label, path (None: the plan's), bh, tq, tk, d, causal, q_off, k_off, block_q, block_k
+        (f"prefill {PREFILL} causal", None, bh, t, t, d, True, 0, 0, 1024, 1024),
+        (f"({bh}, 4096, {d}) causal", None, bh, 4096, 4096, d, True, 0, 0, 1024, 1024),
+        (f"({bh}, 4096, {d}) non-causal", None, bh, 4096, 4096, d, False, 0, 0, 1024, 1024),
+        (f"decode tail {DECODE_TAIL} x {t}", None, bh, DECODE_TAIL, t, d, True, dec_off, 0,
          1024, 1024),
     ]
     for tt in (40, 136):
         for dd in (8, 16):
-            forward_cases.append((f"serving T={tt} D={dd} block_q=8", 4, tt, tt, dd, True, 0,
-                                  8, 16))
-    forward_cases.append(("serving T=136 D=16 non-causal", 4, 136, 136, 16, False, 0, 8, 16))
-    for label, bh_, tq, tk, dd, causal, q_off, block_q, block_k in forward_cases:
+            forward_cases.append((f"serving T={tt} D={dd} block_q=8", None, 4, tt, tt, dd, True,
+                                  0, 0, 8, 16))
+    forward_cases += [
+        ("serving T=136 D=16 non-causal", None, 4, 136, 136, 16, False, 0, 0, 8, 16),
+        # each path at the shapes that stress it
+        ("(2, 200, 64) causal, Tq not a multiple of 128", "wgmma", 2, 200, 200, 64, True, 0, 0,
+         1024, 1024),
+        ("(4, 1024, 128) q_off 64: the diagonal half a tile off", "wgmma", 4, 1024, 1024, d,
+         True, 64, 0, 1024, 1024),
+        ("(4, 1024, 128) q_off 1024: every key visible", "wgmma", 4, 1024, 1024, d, True, 1024,
+         0, 1024, 1024),
+        ("(4, 1024, 128) k_off = q_off + Tq + 64: every row masked", "wgmma", 4, 1024, 1024, d,
+         True, 0, 1088, 1024, 1024),
+        (f"Tq 1 at q_off {t - 1}", "split", bh, 1, t, d, True, t - 1, 0, 1024, 1024),
+        (f"ragged Tk {t} + 40", "split", bh, DECODE_TAIL, t + 40, d, True, t + 40 - DECODE_TAIL,
+         0, 1024, 1024),
+        ("BH 1", "split", 1, DECODE_TAIL, t, d, True, dec_off, 0, 1024, 1024),
+        ("non-causal", "split", bh, DECODE_TAIL, t, d, False, 0, 0, 1024, 1024),
+    ]
+    for label, path, bh_, tq, tk, dd, causal, q_off, k_off, block_q, block_k in forward_cases:
         q, k, v = randn(bh_, tq, dd), randn(bh_, tk, dd), randn(bh_, tk, dd)
-        out, lse = fa.flash_attention_local(q, k, v, causal, block_k, block_q, q_off)
+        if path is None:
+            path = fa._forward_plan(bh_, tq, tk, dd, causal, q_off, k_off, n_sm)[0]
+            out, lse = fa.flash_attention_local(q, k, v, causal, block_k, block_q, q_off, k_off)
+            label = f"{label} (planned)"
+        else:
+            out, lse = fa._flash_forward_on(path, q, k, v, causal, q_off, k_off)
         torch.cuda.synchronize()
         ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, block_k, block_q,
-                                                          q_off)
+                                                          q_off, k_off)
+        if not ref.float().any():
+            # every row masked: out exactly 0 and lse exactly the sentinel
+            exact = not out.float().any() and bool((lse == fa.NEG_INF).all())
+            print(f"kernel flash_attention_local [{path}] {label}: out all 0 and lse all "
+                  f"NEG_INF={exact}", flush=True)
+            require(exact, f"flash_attention_local [{path}] gave a masked row a value at {label}")
+            continue
         err, scaled, lse_err = _abs_err(out, ref), _scaled_err(out, ref), _rel_err(lse, ref_lse)
-        print(f"kernel flash_attention_local {label}: out max_abs_err={err!r} "
+        print(f"kernel flash_attention_local [{path}] {label}: out max_abs_err={err!r} "
               f"(/max|plain| {scaled!r}) lse max_rel_err={lse_err!r}", flush=True)
         require(scaled <= KERNEL_OUT_RTOL and lse_err <= STATE_RTOL,
-                f"flash_attention_local differs from its plain version at {label}")
+                f"flash_attention_local [{path}] differs from its plain version at {label}")
         worst["flash_attention_local"] = max(worst["flash_attention_local"], err)
         del q, k, v, out, lse, ref, ref_lse
 
@@ -696,9 +760,13 @@ def flash_timing_phase(name: str) -> dict:
     bh, t, d = PREFILL
     q, k, v = randn(bh, t, d), randn(bh, t, d), randn(bh, t, d)
     pairs = bh * t * (t + 1) // 2  # (query, key) pairs the causal mask keeps
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     rows["prefill"] = {
         "shape": [bh, t, d], "causal": True,
+        "path": fa._forward_plan(bh, t, t, d, True, 0, 0, n_sm)[0],
         "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True), reps=5, per=3),
+        # the mma.sync kernel at the same shape, in the same run
+        "mma_ms": time_ms(lambda: fa._flash_forward_on("mma", q, k, v, True), reps=5, per=3),
         "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True),
                             reps=3, per=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -712,9 +780,12 @@ def flash_timing_phase(name: str) -> dict:
     # is_causal aligns top-left when Tq != Tk: the decode mask is explicit
     mask = torch.arange(t, device="cuda")[None, :] <= rows_pos[:, None]
     pairs = bh * sum(q_off + i + 1 for i in range(DECODE_TAIL))
+    path, n_splits = fa._forward_plan(bh, DECODE_TAIL, t, d, True, q_off, 0, n_sm)
     rows["decode"] = {
         "shape": [bh, DECODE_TAIL, t, d], "causal": True, "q_off": q_off,
+        "path": path, "n_splits": n_splits,
         "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True, q_off=q_off)),
+        "mma_ms": time_ms(lambda: fa._flash_forward_on("mma", q, k, v, True, q_off)),
         "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True,
                                                                        q_off=q_off),
                             reps=5, per=5),
@@ -722,6 +793,9 @@ def flash_timing_phase(name: str) -> dict:
             q[None], k[None], v[None], attn_mask=mask)),
         **_bound(4.0 * d * pairs, (2 * bh * t * d + 2 * bh * DECODE_TAIL * d) * 2
                  + bh * DECODE_TAIL * 4, rates),
+        # the split count against the plan's: one wave of blocks to four
+        "split_ms_by_n_splits": {n: time_ms(lambda: fa._flash_forward_on(
+            "split", q, k, v, True, q_off, 0, n)) for n in (16, 33, 66, 132)},
     }
     del q, k, v
     bh, t, d = RING_HOP
@@ -746,6 +820,9 @@ def flash_timing_phase(name: str) -> dict:
     }
     for key, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if "mma_ms" in row:
+            row["mma_bound_share"] = row["bound_ms"] / row["mma_ms"]
+            row["speedup_vs_mma"] = row["mma_ms"] / row["ms"]
         print(json.dumps({"timing": key, **row}), flush=True)
     return rows
 
@@ -865,10 +942,11 @@ def main() -> int:
     # the plain versions' f32 products in full f32, not TF32 (the default,
     # stated here)
     torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
     name, count = device_phase()
     build_phase()
     launches = gate_phase(count)
-    forward_launches, update_launches = attention_phase(count)
+    forward_launches, forward_paths, update_launches = attention_phase(count)
     dma_launches = probes_phase(count)
     train_fwd_launches, train_bwd_launches, _ = training_phase(count)
     max_err = kernel_phase()
@@ -901,12 +979,16 @@ def main() -> int:
     }, {
         "name": "flash_attention_local",
         "route": "cuda",
-        "source": source,
+        "source": "tpu_operator_torch/csrc/flash_forward_sm90.cu",
+        "sources": ["tpu_operator_torch/csrc/flash_forward_sm90.cu", source],
         "replaces": "tpu_operator/workloads/longctx.py:47",
         "launches": forward_launches,
+        "paths": forward_paths,
         "max_abs_err": flash_err["flash_attention_local"],
         **entry(ft["prefill"]),
-        "shapes": {"prefill": entry(ft["prefill"]), "decode": entry(ft["decode"])},
+        "shapes": {key: {**entry(ft[key]), "path": ft[key]["path"], "mma_ms": ft[key]["mma_ms"],
+                         "bound_share": ft[key]["bound_share"]}
+                   for key in ("prefill", "decode")},
     }, {
         "name": "flash_block_update",
         "route": "cuda",
@@ -949,6 +1031,7 @@ def main() -> int:
                    "bfloat16": {**entry(tt["backward_bfloat16"]),
                                 "library_backend": tt["backward_bfloat16"]["library_backend"]}},
     }]}), flush=True)
+    print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall, the build included", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
           flush=True)
     return 0

@@ -104,7 +104,13 @@ def _scaled(a, b) -> float:
 def test_flash_cpu_tensors_take_the_plain_version():
     q, k, v = _qkv("cpu", 2, 48, 48, 8)
     before = (fa.forward_launches, fa.block_update_launches)
+    paths_before = dict(fa.forward_path_launches)
     out, lse = fa.flash_attention_local(q, k, v, True, 16, 16)
+    # the decode's shape, which plans to the split on a card
+    qd, kd, vd = _qkv("cpu", 2, 8, 1024, 8)
+    ref_d = fa.flash_attention_local_reference(qd, kd, vd, True, 1024, 1024, 1016)
+    assert all(torch.equal(a, b) for a, b in
+               zip(fa.flash_attention_local(qd, kd, vd, True, q_off=1016), ref_d))
     ref_out, ref_lse = fa.flash_attention_local_reference(q, k, v, True, 16, 16)
     assert torch.equal(out, ref_out) and torch.equal(lse, ref_lse)
     m, l, o = _fresh(2, 48, 8, "cpu")
@@ -113,6 +119,7 @@ def test_flash_cpu_tensors_take_the_plain_version():
     assert got[0] is m and got[2] is o  # in place
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
     assert (fa.forward_launches, fa.block_update_launches) == before
+    assert fa.forward_path_launches == paths_before
 
 
 @pytest.mark.parametrize(
@@ -156,6 +163,90 @@ def test_flash_forward_kernel_matches_plain(cuda, bh, tq, tk, d, causal, q_off):
     ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off)
     assert _scaled(out, ref) <= OUT_RTOL
     assert _rel(lse, ref_lse) <= STATE_RTOL
+
+
+# each forward path at its cases: label, bh, tq, tk, d, causal, q_off, k_off
+FORWARD_PATH_CASES = {
+    "wgmma": [
+        ("prefill (8, 32768, 128) causal", 8, 32768, 32768, 128, True, 0, 0),
+        ("(8, 4096, 128) causal", 8, 4096, 4096, 128, True, 0, 0),
+        ("(8, 4096, 128) non-causal", 8, 4096, 4096, 128, False, 0, 0),
+        ("(2, 200, 64) causal, Tq not a multiple of 128", 2, 200, 200, 64, True, 0, 0),
+        ("(4, 1024, 128) q_off 64", 4, 1024, 1024, 128, True, 64, 0),
+        ("(4, 1024, 128) q_off 1024, every key visible", 4, 1024, 1024, 128, True, 1024, 0),
+        ("(4, 1024, 128) every row masked", 4, 1024, 1024, 128, True, 0, 1088),
+    ],
+    "split": [
+        ("decode 8 x 32768", 8, 8, 32768, 128, True, 32760, 0),
+        ("Tq 1 at the end", 8, 1, 32768, 128, True, 32767, 0),
+        ("ragged Tk 32768 + 40", 8, 8, 32808, 128, True, 32800, 0),
+        ("BH 1", 1, 8, 32768, 128, True, 32760, 0),
+        ("non-causal", 8, 8, 32768, 128, False, 0, 0),
+        ("D 16, every row masked", 4, 8, 4096, 16, True, 0, 4200),
+    ],
+    "mma": [
+        ("serving T 40 D 8", 4, 40, 40, 8, True, 0, 0),
+        ("serving T 40 D 16", 4, 40, 40, 16, True, 0, 0),
+        ("serving T 136 D 8", 4, 136, 136, 8, True, 0, 0),
+        ("serving T 136 D 16", 4, 136, 136, 16, True, 0, 0),
+        ("serving T 136 D 16 non-causal", 4, 136, 136, 16, False, 0, 0),
+    ],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "path, case", [(p, c) for p, cases in FORWARD_PATH_CASES.items() for c in cases],
+    ids=[f"{p}: {c[0]}" for p, cases in FORWARD_PATH_CASES.items() for c in cases])
+def test_each_forward_path_matches_plain(cuda, path, case):
+    _, bh, tq, tk, d, causal, q_off, k_off = case
+    q, k, v = _qkv(cuda, bh, tq, tk, d, seed=3)
+    before = dict(fa.forward_path_launches)
+    out, lse = fa._flash_forward_on(path, q, k, v, causal, q_off, k_off)
+    torch.cuda.synchronize()
+    assert fa.forward_path_launches[path] == before[path] + 1
+    ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, q_off=q_off, k_off=k_off)
+    if not ref.float().any():  # every row masked: exactly the reference's sentinel
+        assert not out.float().any() and bool((lse == fa.NEG_INF).all())
+        return
+    assert _scaled(out, ref) <= OUT_RTOL
+    assert _rel(lse, ref_lse) <= STATE_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, tq, tk, d, q_off, path", [
+    (8, 1024, 1024, 128, 0, "wgmma"), (8, 8, 32768, 128, 32760, "split"),
+    (4, 40, 40, 8, 0, "mma"), (4, 1024, 1024, 32, 0, "mma")])
+def test_forward_plan_counts_its_path(cuda, bh, tq, tk, d, q_off, path):
+    q, k, v = _qkv(cuda, bh, tq, tk, d, seed=4)
+    before = dict(fa.forward_path_launches)
+    total = fa.forward_launches
+    fa.flash_attention_local(q, k, v, True, q_off=q_off)
+    torch.cuda.synchronize()
+    assert fa.forward_launches == total + 1
+    assert fa.forward_path_launches == {**before, path: before[path] + 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["wgmma", "split", "mma"])
+def test_forward_paths_reject_what_they_do_not_take(cuda, path):
+    q, k, v = _qkv(cuda, 2, 256, 256, 64)
+    base = torch.zeros(2 * 256 * 64 + 8, device=cuda, dtype=torch.bfloat16)
+    unaligned = base[4:4 + 2 * 256 * 64].view(2, 256, 64)  # 8 bytes off
+    before = dict(fa.forward_path_launches)
+    with pytest.raises(ValueError):
+        fa._flash_forward_on(path, unaligned, k, v)
+    with pytest.raises(ValueError):
+        fa._flash_forward_on(path, *(torch.zeros(2, 256, 12, device=cuda,
+                                                 dtype=torch.bfloat16),) * 3)
+    with pytest.raises(ValueError):
+        fa._flash_forward_on(path, q.cpu(), k.cpu(), v.cpu())
+    if path == "wgmma":
+        with pytest.raises(ValueError):  # D 32: the mma kernel's
+            fa._flash_forward_on(path, *(x[..., :32].contiguous() for x in (q, k, v)))
+    with pytest.raises(ValueError):
+        fa._flash_forward_on("tiles", q, k, v)
+    assert fa.forward_path_launches == before
 
 
 @pytest.mark.cuda

@@ -1,9 +1,11 @@
-// Flash attention on bf16 tiles for Hopper (sm_90a): two entries over one
+// Flash attention on bf16 tiles for Hopper (sm_90a): three entries over one
 // shared online-softmax tile update.
 //
 //   tpu_flash_forward_bf16       replaces `_flash_full_kernel` /
 //       `flash_attention_local` (tpu_operator/workloads/longctx.py:47-150):
 //       the full forward, causal or not, returning out (bf16) and lse (f32).
+//   tpu_flash_forward_split_bf16 the same function for short query tails
+//       against long caches (the decode): a split over the keys.
 //   tpu_flash_block_update_bf16  replaces `_flash_block_kernel` /
 //       `flash_block_update` (tpu_operator/workloads/ring_attention.py:118-218):
 //       folds one K/V block into the carried (m, l, o) state, in place.
@@ -49,9 +51,30 @@
 // at the last tile that holds a key at or before the q-tile's last query
 // (the TPU kernel's block skip; a fully masked tile is a no-op of the
 // update) and launches the heaviest q-tiles first.  The block update never
-// skips, as the reference.  Not done here and left to later work: wgmma,
-// TMA, warp specialisation, and a split over K for the decode shape, whose
-// grid has only BH blocks.
+// skips, as the reference.  The prefill at D 64 and 128 runs on the wgmma
+// kernel of csrc/flash_forward_sm90.cu instead.
+//
+// The split (decode: 8 rows against 32768 keys, BH 8).  The forward's grid
+// would be BH blocks for 132 SMs, each streaming its 16.8 MB of K/V alone
+// with one warp of four live; the decode is bound by its 134 MB of K/V
+// (40.1 us at 3.35 TB/s).  Pass 1 (flash_split_kernel) runs one block per
+// (split, 16-row q tile, bh): the live 64-key tiles are cut into n_splits
+// contiguous ranges, and each of the block's four warps folds its own
+// quarter of its split's range from a fresh state with fold_tile, through
+// its own one-tile cp.async stage (warp-scope waits only; 139 KB a block at
+// D 128, so a second stage per warp would not fit), with the q tile's 16
+// rows in every warp.  While one warp folds, the other three wait on their
+// copies: up to 139 KB in flight per SM, 18 MB over the card.  The block merges the four warps' states in shared
+// memory and writes one unnormalized partial (m, l, acc[D]) per row to f32
+// scratch that the caller allocates.  Pass 2 (flash_split_combine), one
+// block per (row, bh): m* = max m_s, l* = sum l_s exp(m_s - m*), out =
+// bf16(sum acc_s exp(m_s - m*) / (l* > 0 ? l* : 1)), lse = m* + log(same).
+// A split or warp that sees no key leaves (NEG_INF, 0, 0), whose weight
+// in the merge is exp(NEG_INF - m*) = 0, or which adds only zeros when m*
+// is NEG_INF too: a row masked everywhere gives out 0 and lse NEG_INF.  A
+// second launch rather than a last-block ticket: it keeps pass 1 free of
+// atomics and fences, and the combine reads 1 MB of partials at the decode
+// shape, a few microseconds.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -378,6 +401,164 @@ int dispatch(const Params& p, cudaStream_t stream) {
   return launch<128, kUpdate>(p, stream);
 }
 
+// ---------------------------------------------------------------------------
+// the split over the keys
+
+constexpr int kSplitRows = 16;  // query rows per split block: one warp's m16 tile
+
+// Stage keys [k0, k0 + kBlockK) of K and V, by one warp's lanes.
+template <int DP>
+__device__ __forceinline__ void load_tile_warp(const Params& p, int bh, int k0,
+                                               __nv_bfloat16* ks, __nv_bfloat16* vs) {
+  constexpr int kChunks = DP / 8;
+  constexpr int kStride = DP + 8;
+  for (int i = threadIdx.x % 32; i < kBlockK * kChunks; i += 32) {
+    const int r = i / kChunks;
+    const int c = i % kChunks;
+    const int key = k0 + r;
+    const bool ok = key < p.tk && c * 8 < p.d;
+    const int64_t off = ok ? ((int64_t)bh * p.tk + key) * p.d + c * 8 : 0;
+    cp_async16(ks + r * kStride + c * 8, p.k + off, ok);
+    cp_async16(vs + r * kStride + c * 8, p.v + off, ok);
+  }
+}
+
+// Partials, f32: m [S, BH, Tq], then l [S, BH, Tq], then acc [S, BH, Tq, D].
+template <int DP>
+__global__ void __launch_bounds__(kThreads)
+    flash_split_kernel(const Params p, float* part, int n_splits, int n_live) {
+  constexpr int kStride = DP + 8;
+  constexpr int kTileElems = kBlockK * kStride;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int split = blockIdx.x;
+  const int q0 = blockIdx.y * kSplitRows;
+  const int bh = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int row[2] = {q0 + g, q0 + g + 8};
+  // this warp's own K and V tile
+  __nv_bfloat16* k_smem = reinterpret_cast<__nv_bfloat16*>(smem_raw) + warp * 2 * kTileElems;
+  __nv_bfloat16* v_smem = k_smem + kTileElems;
+
+  uint32_t qa[DP / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < DP / 16; ++kk) {
+    const int c0 = kk * 16 + t4 * 2;
+    const int c1 = c0 + 8;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool ok = row[r] < p.tq;
+      const __nv_bfloat16* qr = p.q + ((int64_t)bh * p.tq + (ok ? row[r] : 0)) * p.d;
+      qa[kk][r] = load_pair(qr + c0, ok && c0 < p.d);
+      qa[kk][r + 2] = load_pair(qr + c1, ok && c1 < p.d);
+    }
+  }
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < DP / 8; ++nd) acc[nd][0] = acc[nd][1] = acc[nd][2] = acc[nd][3] = 0.f;
+
+  // the split's tiles [lo, hi), then this warp's quarter of them
+  const int lo = (int)((int64_t)n_live * split / n_splits);
+  const int hi = (int)((int64_t)n_live * (split + 1) / n_splits);
+  const int w_lo = lo + (hi - lo) * warp / kWarps;
+  const int n = lo + (hi - lo) * (warp + 1) / kWarps - w_lo;
+  for (int t = 0; t < n; ++t) {
+    load_tile_warp<DP>(p, bh, (w_lo + t) * kBlockK, k_smem, v_smem);
+    cp_async_commit();
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();  // every lane's copies of tile t have landed
+    fold_tile<DP>(p, qa, k_smem, v_smem, (w_lo + t) * kBlockK, p.q_off + q0, m, l, acc);
+    __syncwarp();  // the tile is free for the next copy
+  }
+
+  // merge the four warps' states in shared memory (the tiles are done)
+  __syncthreads();
+  float* ms = reinterpret_cast<float*>(smem_raw);  // [warp][row]
+  float* ls = ms + kWarps * kSplitRows;
+  float* accs = ls + kWarps * kSplitRows;           // [warp][row][DP]
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int rr = warp * kSplitRows + g + 8 * r;
+    if (t4 == 0) {
+      ms[rr] = m[r];
+      ls[rr] = l[r];
+    }
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      accs[rr * DP + nd * 8 + t4 * 2] = acc[nd][2 * r];
+      accs[rr * DP + nd * 8 + t4 * 2 + 1] = acc[nd][2 * r + 1];
+    }
+  }
+  __syncthreads();
+  const int64_t rows = (int64_t)p.bh * p.tq;
+  for (int i = threadIdx.x; i < kSplitRows * DP; i += kThreads) {
+    const int r = i / DP;
+    const int c = i % DP;
+    if (q0 + r >= p.tq || c >= p.d) continue;
+    float mx = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, ms[w * kSplitRows + r]);
+    float a = 0.f;
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float f = expf(ms[w * kSplitRows + r] - mx);
+      a += accs[(w * kSplitRows + r) * DP + c] * f;
+      lsum += ls[w * kSplitRows + r] * f;
+    }
+    const int64_t idx = (int64_t)split * rows + (int64_t)bh * p.tq + q0 + r;
+    part[2 * n_splits * rows + idx * p.d + c] = a;
+    if (c == 0) {
+      part[idx] = mx;
+      part[n_splits * rows + idx] = lsum;
+    }
+  }
+}
+
+__global__ void __launch_bounds__(128)
+    flash_split_combine(const float* part, __nv_bfloat16* out, float* lse, int n_splits, int bh,
+                        int tq, int d) {
+  const int64_t rows = (int64_t)bh * tq;
+  const int64_t idx = (int64_t)blockIdx.y * tq + blockIdx.x;
+  const int c = threadIdx.x;
+  float mx = kNegInf;
+  for (int s = 0; s < n_splits; ++s) mx = fmaxf(mx, part[s * rows + idx]);
+  float lsum = 0.f;
+  float a = 0.f;
+  for (int s = 0; s < n_splits; ++s) {
+    const float f = expf(part[s * rows + idx] - mx);
+    lsum += part[(n_splits + s) * rows + idx] * f;
+    if (c < d) a += part[2 * n_splits * rows + (s * rows + idx) * d + c] * f;
+  }
+  const float denom = lsum > 0.f ? lsum : 1.f;
+  if (c < d) out[idx * d + c] = __float2bfloat16_rn(a / denom);
+  if (c == 0) lse[idx] = mx + logf(denom);
+}
+
+template <int DP>
+int launch_split(const Params& p, float* part, int n_splits, int n_live, cudaStream_t stream) {
+  constexpr int kSmem = kWarps * 2 * kBlockK * (DP + 8) * (int)sizeof(__nv_bfloat16);
+  static_assert(kSmem >= (2 + DP) * kWarps * kSplitRows * (int)sizeof(float),
+                "the merge reuses the tiles' shared memory");
+  auto kernel = flash_split_kernel<DP>;
+  if (kSmem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(n_splits, (p.tq + kSplitRows - 1) / kSplitRows, p.bh);
+  kernel<<<grid, kThreads, kSmem, stream>>>(p, part, n_splits, n_live);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_split_combine<<<dim3(p.tq, p.bh), 128, 0, stream>>>(part, p.out, p.lse, n_splits, p.bh,
+                                                            p.tq, p.d);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Full flash forward: out [BH, Tq, D] bf16 and lse [BH, Tq] f32 from q
@@ -403,6 +584,48 @@ extern "C" int tpu_flash_forward_bf16(const void* q, const void* k, const void* 
   p.causal = causal;
   p.scale = scale;
   return dispatch<false>(p, stream);
+}
+
+// The full flash forward as a split over the keys: the same arguments and
+// result as tpu_flash_forward_bf16, plus `part`, f32 scratch of
+// n_splits * BH * Tq * (D + 2) floats for the partial states, and
+// `n_splits` >= 1.  Two launches on `stream`; returns the first failure's
+// cudaError_t (0 on success).
+extern "C" int tpu_flash_forward_split_bf16(const void* q, const void* k, const void* v,
+                                            void* out, float* lse, float* part, int bh, int tq,
+                                            int tk, int d, int64_t q_off, int64_t k_off,
+                                            int causal, float scale, int n_splits,
+                                            cudaStream_t stream) {
+  if (bh <= 0 || tq <= 0) return (int)cudaSuccess;
+  if (d <= 0 || d > 128 || d % 8 != 0 || bh > 65535 || tq > 65535 * kSplitRows ||
+      n_splits < 1 || n_splits > (1 << 30)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  Params p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = lse;
+  p.bh = bh;
+  p.tq = tq;
+  p.tk = tk;
+  p.d = d;
+  p.q_off = q_off;
+  p.k_off = k_off;
+  p.causal = causal;
+  p.scale = scale;
+  // the live keys: those at or before the last row's position when causal
+  int64_t live = tk;
+  if (causal) {
+    const int64_t last = q_off + tq - k_off;
+    live = last < 0 ? 0 : (last < tk ? last : tk);
+  }
+  const int n_live = (int)((live + kBlockK - 1) / kBlockK);
+  if (d <= 16) return launch_split<16>(p, part, n_splits, n_live, stream);
+  if (d <= 32) return launch_split<32>(p, part, n_splits, n_live, stream);
+  if (d <= 64) return launch_split<64>(p, part, n_splits, n_live, stream);
+  return launch_split<128>(p, part, n_splits, n_live, stream);
 }
 
 // Fold k, v [BH, Tk, D] into the online-softmax state of q [BH, Tq, D]:

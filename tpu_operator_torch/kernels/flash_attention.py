@@ -1,9 +1,13 @@
-"""The flash-attention kernels (``csrc/flash_attention.cu``) and their plain
-PyTorch versions.
+"""The flash-attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_forward_sm90.cu``) and their plain PyTorch versions.
 
 - ``flash_attention_local`` replaces the Pallas TPU kernel
   ``_flash_full_kernel`` (``tpu_operator/workloads/longctx.py:47-150``):
-  the full forward, causal or not, returning out and the log-sum-exp;
+  the full forward, causal or not, returning out and the log-sum-exp.  It
+  runs one of three kernels, chosen per call by ``_forward_plan``: the
+  ``wgmma`` + TMA kernel for long prefills at D 64 and 128, a split over
+  the keys for short query tails against long caches (the decode), and the
+  ``mma.sync`` kernel for everything else;
 - ``flash_block_update`` replaces ``_flash_block_kernel``
   (``tpu_operator/workloads/ring_attention.py:118-218``): one K/V block
   folded into the carried (m, l, o) state, in place.  bf16 q/k/v go to the
@@ -33,11 +37,20 @@ NEG_INF = -1e30  # large-negative instead of -inf: exp() of a fully masked
 
 # launches of each CUDA kernel in this process: a run shows it went through
 # the kernel by reading these before and after (chip_smoke.py sets them to 0)
-forward_launches = 0
+forward_launches = 0           # every path of the forward
+forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0}
 block_update_launches = 0      # the bf16 entry
 block_update_f32_launches = 0  # the f32 entry
 
 MAX_HEAD_DIM = 128
+
+# the forward's plan (``_forward_plan``)
+MMA_ROWS = 64             # query rows per block of the mma kernel
+SPLIT_TILE = 64           # keys per tile of the split kernel
+SPLIT_ROWS = 16           # query rows per block of the split kernel
+MIN_SPLIT_TILES = 4       # tiles per split at least: one per warp of the block
+WGMMA_ROWS = 128          # query rows per block of the wgmma kernel
+WGMMA_HEAD_DIMS = (64, 128)
 
 
 def _block_div(t: int, want: int) -> int:
@@ -65,6 +78,54 @@ def _q_tile(tq: int, tk: int, budget_bytes: int = 4 << 20) -> int:
         if tq % blk == 0:
             return blk
     return tq
+
+
+def _live_keys(tq: int, tk: int, causal: bool, q_off: int, k_off: int) -> int:
+    """Keys [0, n) that some query row can see: all of them unless causal,
+    else those at or before the last row's position ``q_off + tq - 1``."""
+    if not causal:
+        return tk
+    return max(0, min(tk, q_off + tq - k_off))
+
+
+def _split_ranges(n_tiles: int, n_splits: int) -> list:
+    """The split kernel's cut of ``n_tiles`` key tiles into ``n_splits``
+    contiguous ranges [lo, hi), as even as integers allow; empty ranges
+    only when there are more splits than tiles."""
+    return [(n_tiles * s // n_splits, n_tiles * (s + 1) // n_splits) for s in range(n_splits)]
+
+
+def _split_count(bh: int, tq: int, n_tiles: int, n_sm: int) -> int:
+    """Splits enough for ``bh * ceil(tq / 16) * n`` blocks to cover the SMs
+    twice, capped so each keeps ``MIN_SPLIT_TILES`` of the ``n_tiles``
+    live tiles; at least 1."""
+    row_blocks = bh * -(-tq // SPLIT_ROWS)
+    return max(1, min(-(-2 * n_sm // row_blocks), n_tiles // MIN_SPLIT_TILES))
+
+
+def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k_off: int,
+                  n_sm: int) -> tuple:
+    """Which kernel runs a forward call, and over how many key ranges:
+    ``(path, n_splits)``.
+
+    - ``split`` when the query side is a short tail (``tq <= SPLIT_ROWS``),
+      the mma kernel's ``bh * ceil(tq / 64)`` blocks cannot fill the
+      ``n_sm`` SMs, and the live keys span at least two splits of
+      ``MIN_SPLIT_TILES`` 64-key tiles: the decode.  ``n_splits`` makes
+      ``bh * ceil(tq / 16) * n_splits`` blocks cover the SMs twice, capped
+      so every split keeps ``MIN_SPLIT_TILES`` tiles (one per warp).
+    - ``wgmma`` when D is 64 or 128 and Tq fills at least one 128-row q
+      tile: the prefill.
+    - ``mma`` for everything else: the serving pages at D 8 and 16, D 32,
+      short sequences.
+    ``n_splits`` is 1 on the two paths that do not split."""
+    n_tiles = -(-_live_keys(tq, tk, causal, q_off, k_off) // SPLIT_TILE)
+    blocks = bh * -(-tq // MMA_ROWS)
+    if tq <= SPLIT_ROWS and blocks < n_sm and n_tiles >= 2 * MIN_SPLIT_TILES:
+        return "split", _split_count(bh, tq, n_tiles, n_sm)
+    if d in WGMMA_HEAD_DIMS and tq >= WGMMA_ROWS:
+        return "wgmma", 1
+    return "mma", 1
 
 
 # ---------------------------------------------------------------------------
@@ -128,6 +189,46 @@ def flash_attention_local_reference(q, k, v, causal=True, block_k=1024, block_q=
     return out, lse
 
 
+def merge_partials(m, l, acc, out_dtype=torch.float32):
+    """The split's combine pass: partial states m, l ``[S, BH, Tq]`` and
+    acc ``[S, BH, Tq, D]`` (f32, unnormalized) merged into (out ``[BH, Tq,
+    D]`` in ``out_dtype``, lse ``[BH, Tq]``).  m* = max over splits,
+    l* = sum l_s exp(m_s - m*), out = sum acc_s exp(m_s - m*) / l*; a
+    split that saw no key, (NEG_INF, 0, 0), adds nothing, and a row that
+    saw none gives out 0 and lse exactly NEG_INF."""
+    m_star = m.amax(dim=0)
+    f = torch.exp(m - m_star)
+    l_star = (l * f).sum(dim=0)
+    acc_star = (acc * f[..., None]).sum(dim=0)
+    denom = torch.where(l_star > 0, l_star, 1.0)
+    return (acc_star / denom[..., None]).to(out_dtype), m_star + torch.log(denom)
+
+
+def flash_attention_split_reference(q, k, v, causal, n_splits, q_off=0, k_off=0):
+    """The plain split over the keys: the live keys cut into ``n_splits``
+    contiguous ranges of 64-key tiles as the split kernel cuts them
+    (``_split_ranges``), each range folded from a fresh state by
+    ``online_softmax_block_update``, the partial states merged by
+    ``merge_partials``.  Returns (out [BH, Tq, D] in q's dtype, lse [BH, Tq]
+    f32)."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    n_tiles = -(-_live_keys(tq, tk, causal, q_off, k_off) // SPLIT_TILE)
+    parts = []
+    for lo, hi in _split_ranges(n_tiles, n_splits):
+        state = (torch.full((bh, tq, 1), NEG_INF, dtype=torch.float32, device=q.device),
+                 torch.zeros((bh, tq, 1), dtype=torch.float32, device=q.device),
+                 torch.zeros((bh, tq, d), dtype=torch.float32, device=q.device))
+        a, b = lo * SPLIT_TILE, min(hi * SPLIT_TILE, tk)
+        if b > a:
+            state = online_softmax_block_update(causal, scale, q, k[:, a:b], v[:, a:b], *state,
+                                                q_off, k_off + a)
+        parts.append(state)
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    return merge_partials(m[..., 0], l[..., 0], acc, q.dtype)
+
+
 def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal):
     """The plain block update: the whole K/V block folded into each q-tile
     (``_q_tile``) of the state.  Returns the new (m, l, o); the inputs are
@@ -176,26 +277,40 @@ def _check_device(*tensors) -> None:
         raise ValueError("flash kernels take 16-byte-aligned tensors")
 
 
-_ENTRIES = {  # source -> (entry, state pointers)
-    "flash_attention": (("tpu_flash_forward_bf16", 2), ("tpu_flash_block_update_bf16", 3)),
-    "flash_backward": (("tpu_flash_block_update_f32", 3),),
+_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+# q, k, v, <state pointers>, bh, tq, tk, d, q_off, k_off, causal, scale, stream
+_FORWARD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64, _I, _F, _P]
+_UPDATE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64, _I, _F, _P]
+_ENTRIES = {  # source -> {entry: argtypes}
+    "flash_attention": {
+        "tpu_flash_forward_bf16": _FORWARD_ARGS,
+        # the forward's, plus the f32 scratch after lse and n_splits before the stream
+        "tpu_flash_forward_split_bf16": [*_FORWARD_ARGS[:5], _P, *_FORWARD_ARGS[5:13], _I, _P],
+        "tpu_flash_block_update_bf16": _UPDATE_ARGS,
+    },
+    "flash_forward_sm90": {"tpu_flash_forward_wgmma_bf16": _FORWARD_ARGS},
+    "flash_backward": {"tpu_flash_block_update_f32": _UPDATE_ARGS},
 }
 
 
 def _bind(source: str = "flash_attention") -> ctypes.CDLL:
     lib, _ = _build.library(source)
-    for name, n_state in _ENTRIES[source]:
+    for name, argtypes in _ENTRIES[source].items():
         fn = getattr(lib, name)
-        state = [ctypes.c_void_p] * n_state
         if fn.argtypes is None:
-            fn.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, *state,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p,
-            ]
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
     return lib
+
+
+_n_sm: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _n_sm:
+        _n_sm[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _n_sm[index]
 
 
 def _on_card(q: torch.Tensor) -> bool:
@@ -210,30 +325,67 @@ def flash_attention_local(q, k, v, causal=True, block_k=1024, block_q=1024, q_of
     """Flash attention in the merged layout ``[BH, T, D]`` (kernel B5).
     Returns (out [BH, Tq, D] in q's dtype, lse [BH, Tq] f32).
     ``q_off``/``k_off``: global sequence offsets (causal positions are
-    ``q_off + row`` and ``k_off + col``).  On a card the CUDA kernel
-    (launched on the current stream, not synchronized), which picks its own
-    tiles; ``block_q``/``block_k`` are kept for parity with the reference
-    and honoured by the plain version (``_block_div``), which tensors on the
-    CPU take."""
-    global forward_launches
+    ``q_off + row`` and ``k_off + col``).  On a card the kernel that
+    ``_forward_plan`` picks for the call (launched on the current stream,
+    not synchronized), which picks its own tiles; ``block_q``/``block_k``
+    are kept for parity with the reference and honoured by the plain
+    version (``_block_div``), which tensors on the CPU take."""
     _check_qkv(q, k, v)
     if not _on_card(q):
         return flash_attention_local_reference(q, k, v, causal, block_k, block_q, q_off, k_off)
     _check_device(q, k, v)
     bh, tq, d = q.shape
-    lib = _bind()
+    path, n_splits = _forward_plan(bh, tq, k.shape[1], d, causal, q_off, k_off,
+                                   _sm_count(q.device))
+    return _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits)
+
+
+def _flash_forward_on(path, q, k, v, causal=True, q_off=0, k_off=0, n_splits=None):
+    """Run the forward on the named ``path`` (``wgmma``, ``split`` or
+    ``mma``) at any shape that path takes, whatever the plan would pick:
+    for holding each kernel against the plain version and timing one
+    against another on the card.  ``n_splits`` defaults to the plan's
+    sizing (``_split_count``).  The main path never calls it."""
+    _check_qkv(q, k, v)
+    if not _on_card(q):
+        raise ValueError("_flash_forward_on launches a kernel: give it tensors on a card")
+    _check_device(q, k, v)
+    if path not in forward_path_launches:
+        raise ValueError(f"no forward path {path!r}: one of {sorted(forward_path_launches)}")
+    if n_splits is None:
+        n_tiles = -(-_live_keys(q.shape[1], k.shape[1], causal, q_off, k_off) // SPLIT_TILE)
+        n_splits = _split_count(q.shape[0], q.shape[1], n_tiles, _sm_count(q.device))
+    return _launch_forward(path, q, k, v, causal, q_off, k_off, max(1, int(n_splits)))
+
+
+def _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits):
+    """Launch the forward's ``path`` on checked tensors on a card; raises
+    when the path does not take the shape or the launch fails."""
+    global forward_launches
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    if path == "wgmma" and d not in WGMMA_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the wgmma kernel takes {WGMMA_HEAD_DIMS}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
+    common = (bh, tq, tk, d, int(q_off), int(k_off), int(bool(causal)), 1.0 / math.sqrt(d))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.tpu_flash_forward_bf16(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)),
-            1.0 / math.sqrt(d), stream,
-        )
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
+        if path == "wgmma":
+            rc = _bind("flash_forward_sm90").tpu_flash_forward_wgmma_bf16(*ptrs, *common, stream)
+        elif path == "split":
+            # one partial (m, l, acc[D]) per (split, bh, row), f32
+            part = torch.empty(n_splits * bh * tq * (d + 2), dtype=torch.float32,
+                               device=q.device)
+            rc = _bind().tpu_flash_forward_split_bf16(*ptrs, part.data_ptr(), *common, n_splits,
+                                                      stream)
+        else:
+            rc = _bind().tpu_flash_forward_bf16(*ptrs, *common, stream)
     if rc != 0:
-        raise RuntimeError(f"flash forward kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"flash forward kernel ({path}) launch failed: cudaError {rc}")
     forward_launches += 1
+    forward_path_launches[path] += 1
     return out, lse
 
 

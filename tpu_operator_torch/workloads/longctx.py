@@ -9,8 +9,10 @@ f32 scores per head are 4 GB) comes from spot tiles: one q tile's reference
 needs only a [tile, T] score slab, so the first and the last tiles (the
 diagonal edge and the full-context row) are checked exactly.
 
-The decode probe reuses the same kernel with an 8-row query tail at the end
-of a long cache: the byte-bound half of serving.
+The decode probe calls the same function with an 8-row query tail at the
+end of a long cache: the byte-bound half of serving.  On a card the
+function's plan runs the prefill on B5's ``wgmma`` kernel and the decode on
+its split over the keys (``_forward_plan``).
 """
 
 from __future__ import annotations
