@@ -12,7 +12,8 @@ plain PyTorch version.  Phases, each fatal on failure:
    name and power limit as nvidia-smi reports them
 2. build     — compiles every source in ``tpu_operator_torch/csrc`` with
    nvcc, one process per source, all started together; prints ptxas's
-   registers and spills of the wgmma kernel and fails if it spills at D 128
+   registers and spills of the wgmma kernel and fails if it spills at D
+   128; prints the training kernels' registers, spills and shared memory
 3. gate      — ``run_validation.main()`` with vector-add, allreduce and
    burn-in at their shipping sizes and EXPECTED_DEVICES set: exit 0, one
    JSON line per check, a drop-box holding all of them, finite outputs that
@@ -54,11 +55,13 @@ plain PyTorch version.  Phases, each fatal on failure:
    views, tolerance 0) on random bit patterns with NaN payloads, at the toy
    shapes, the probe shape and in bf16, and the wrapper's alignment
    rejections; B4 (f32 and bf16) and B3's f32 entry at the train hop
-   (128, 2048, 128) causal, the transformer check's (16, 16, 32), ragged
-   shapes and a fully masked block, which must leave the accumulators or
-   the state bit-identical: per output, max |kernel - plain| within 1e-4 of
-   max |plain| in f32 and 1e-2 in bf16 (B4: this hop's contribution, on
-   top of non-zero accumulators)
+   (128, 2048, 128) causal, a fully visible hop at its width (q_off 2048),
+   the transformer check's (16, 16, 32), ragged shapes, head dims 40 and 72,
+   Tq and Tk off the 64 grid at D 128, and a fully masked block, which must
+   leave the accumulators or the state bit-identical: per output, max
+   |kernel - plain| within 1e-4 of max |plain| in f32 and 1e-2 in bf16 (B4:
+   this hop's contribution, on top of non-zero accumulators); every case
+   launched twice on the same inputs, bit-identical
 8. timing    — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
@@ -66,8 +69,10 @@ plain PyTorch version.  Phases, each fatal on failure:
    forward's planned path at the prefill and decode shapes beside its
    ``mma.sync`` kernel at the same shape (``mma_ms``); the DMA
    copy at the probe's shape at 1 and 16 passes per launch; B4 and B3's
-   f32 entry at the train hop, B4's library call the backward alone of
-   ``scaled_dot_product_attention`` (its backend named)
+   f32 entry at the train hop (B4 f32 also at the fully visible hop), B4's
+   library call the backward alone of ``scaled_dot_product_attention`` (its
+   backend named); the f32 rows bound by 3xTF32 (three passes over the
+   TF32 peak), the CUDA-core bound beside it as ``bound_simt_ms``
 
 Launch counts are set to 0 just before each main path runs and read just
 after it; the kernel and timing phases' launches are not counted.  Prints
@@ -117,14 +122,15 @@ def require(cond: bool, msg: str) -> None:
 
 
 def peaks(name: str) -> tuple:
-    """(memory bytes/s, bf16 FLOP/s, f32 CUDA-core FLOP/s) of the card, from
-    the data sheets."""
+    """(memory bytes/s, bf16 FLOP/s, f32 CUDA-core FLOP/s, TF32 FLOP/s) of
+    the card, from the data sheets."""
     from tpu_operator_torch.k8s import nodeinfo
 
     info = nodeinfo.generation_info(nodeinfo.generation_of(name))
-    require(info.hbm_gbps > 0 and info.peak_fp32_tflops > 0,
-            f"no memory rate or f32 peak on record for {name!r}")
-    return info.hbm_gbps * 1e9, info.peak_bf16_tflops * 1e12, info.peak_fp32_tflops * 1e12
+    require(info.hbm_gbps > 0 and info.peak_fp32_tflops > 0 and info.peak_tf32_tflops > 0,
+            f"no memory rate or f32 peaks on record for {name!r}")
+    return (info.hbm_gbps * 1e9, info.peak_bf16_tflops * 1e12, info.peak_fp32_tflops * 1e12,
+            info.peak_tf32_tflops * 1e12)
 
 
 def device_phase():
@@ -164,6 +170,21 @@ def build_phase() -> None:
             print(f"build: wgmma kernel D {d}: {usage}", flush=True)
             require(d != 128 or "0 bytes spill stores, 0 bytes spill loads" in usage,
                     "the wgmma kernel spills at D 128")
+    # the training kernels' registers and spills, and the shared memory a
+    # block takes (dynamic, so not in ptxas's lines)
+    lib, _ = _build.library("flash_backward")
+    names = {"dkdv_kernel": 0, "dq_kernel": 1, "fold_f32_kernel": 2}
+    lines = built["flash_backward"].log.splitlines()
+    for i, line in enumerate(lines):
+        kernel = next((k for k in names if k in line), None)
+        if "Compiling entry function" not in line or kernel is None:
+            continue
+        dp = next(d for d in (128, 64, 32, 16) if f"Li{d}E" in line)
+        dtype = "bf16" if "nv_bfloat16" in line else "f32"
+        usage = " | ".join(x.strip() for x in lines[i + 2:i + 4])
+        smem = lib.tpu_flash_train_smem_bytes(names[kernel], dp, int(dtype == "bf16"))
+        print(f"build: {kernel} {dtype} D {dp}: {usage} | {smem} bytes of shared memory",
+              flush=True)
 
 
 def run_checks(checks: tuple, n_cards: int, counters, scope: str = "") -> tuple:
@@ -549,20 +570,30 @@ def train_kernel_phase() -> dict:
     cases = [
         # label, bh, tq, tk, d, q_off, k_off, causal
         (f"train hop {TRAIN_HOP} causal", bh, t, t, d, 0, 0, True),
+        (f"fully visible hop (8, {t}, {d}) q_off {t}", 8, t, t, d, t, 0, True),
         (f"transformer {TRANSFORMER_HOP} causal", tb, tt, tt, td, 0, 0, True),
         ("ragged (4, 136 x 200, 16) causal, partly visible", 4, 136, 200, 16, 200, 100, True),
         ("ragged (2, 200 x 136, 64) causal, rows with no key", 2, 200, 136, 64, 0, 16, True),
         ("ragged (3, 40 x 72, 8) non-causal", 3, 40, 72, 8, 0, 0, False),
+        ("head dim 40 (3, 200, 40) causal", 3, 200, 200, 40, 0, 0, True),
+        ("head dim 72 (3, 200 x 264, 72) causal", 3, 200, 264, 72, 64, 0, True),
+        ("ragged (2, 300 x 420, 128) causal, Tq and Tk off 64", 2, 300, 420, 128, 120, 0, True),
         ("fully masked (4, 136 x 200, 16)", 4, 136, 200, 16, 0, 200, True),
     ]
+    twice = 0  # cases launched twice on the same inputs, bit-identical
     worst = {"flash_block_backward": 0.0, "flash_block_update_f32": 0.0}
     for dtype, tol in ((torch.float32, F32_RTOL), (torch.bfloat16, KERNEL_OUT_RTOL)):
         for label, bh_, tq, tk, dd, q_off, k_off, causal in cases:
             args, acc = _hop_inputs(gen, dtype, bh_, tq, tk, dd, q_off, k_off, causal)
             mine = tuple(a.clone() for a in acc)
             fb.flash_block_backward(*args, *mine, q_off, k_off, causal)
+            again = tuple(a.clone() for a in acc)
+            fb.flash_block_backward(*args, *again, q_off, k_off, causal)
             torch.cuda.synchronize()
             label = f"{label} {str(dtype)[6:]}"
+            require(all(torch.equal(a, b) for a, b in zip(mine, again)),
+                    f"flash_block_backward is not deterministic at {label}")
+            twice += 1
             if "fully masked" in label:
                 same = all(torch.equal(a, b) for a, b in zip(mine, acc))
                 print(f"kernel flash_block_backward {label}: dq/dk/dv unchanged={same}",
@@ -596,7 +627,12 @@ def train_kernel_phase() -> dict:
             state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *state, False)
         m, l, o = (x.clone() for x in state)
         fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, causal)
+        again = tuple(x.clone() for x in state)
+        fa.flash_block_update(q, k, v, q_off, k_off, *again, causal)
         torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip((m, l, o), again)),
+                f"f32 flash_block_update is not deterministic at {label}")
+        twice += 1
         if "fully masked" in label:
             same = all(torch.equal(a, b) for a, b in zip((m, l, o), state))
             print(f"kernel flash_block_update f32 {label}: state unchanged={same}", flush=True)
@@ -612,6 +648,7 @@ def train_kernel_phase() -> dict:
                 and errs["m"][1] <= STATE_RTOL,
                 f"f32 flash_block_update differs from its plain version at {label}")
         worst["flash_block_update_f32"] = max(worst["flash_block_update_f32"], errs["out"][0])
+    print(f"kernel training: two launches bit-identical in all {twice} cases", flush=True)
     return worst
 
 
@@ -860,54 +897,66 @@ def dma_timing_phase(name: str) -> dict:
     return result
 
 
-def _sdpa_backward_ms(q, k, v, do) -> tuple:
-    """The backward alone of one causal ``scaled_dot_product_attention`` on
-    [1, BH, T, D], the forward outside the timed region; returns (ms, the
-    backward node that ran, which names the backend)."""
+def _sdpa_backward_ms(q, k, v, do, causal=True) -> tuple:
+    """The backward alone of one ``scaled_dot_product_attention`` on [1, BH,
+    T, D], the forward outside the timed region; returns (ms, the backward
+    node that ran, which names the backend)."""
     import torch
     import torch.nn.functional as F
 
     qq, kk, vv = (x.detach()[None].clone().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)
     go = do[None].to(out.dtype)
     ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), go, retain_graph=True),
                  reps=5, per=3)
     return ms, out.grad_fn.name()
 
 
+def _f32_bounds(flops: float, nbytes: float, mem: float, tf32: float, f32: float) -> dict:
+    """The f32 kernels' bound on the route they take, 3xTF32 on the tensor
+    cores (three TF32 passes per product), with the CUDA-core bound beside
+    it for continuity."""
+    return {**_bound(3.0 * flops, nbytes, (mem, tf32)), "flops": flops,
+            "bound_simt_ms": _bound(flops, nbytes, (mem, f32))["bound_ms"]}
+
+
 def train_timing_phase(name: str) -> dict:
-    """B4 (f32 and bf16) and B3's f32 entry at the train hop, their plain
-    versions and the library calls."""
+    """B4 (f32 and bf16) and B3's f32 entry at the train hop, B4 f32 at the
+    fully visible hop as well, their plain versions and the library calls."""
     import torch
     import torch.nn.functional as F
 
     from tpu_operator_torch.kernels import flash_attention as fa
     from tpu_operator_torch.kernels import flash_backward as fb
 
-    mem, bf16_peak, f32_peak = peaks(name)
+    mem, bf16_peak, f32_peak, tf32_peak = peaks(name)
     gen = torch.Generator(device="cuda").manual_seed(7)
     bh, t, d = TRAIN_HOP
-    pairs = bh * t * (t + 1) // 2  # (query, key) pairs the causal mask keeps
     rows = {}
-    for dtype, peak in ((torch.float32, f32_peak), (torch.bfloat16, bf16_peak)):
-        (q, k, v, do, lse, dsum), acc = _hop_inputs(gen, dtype, bh, t, t, d, 0, 0, True)
+    # dtype, q_off: the diagonal hop (causal), and one card's hop of the
+    # four-card training in which every key is visible
+    for dtype, q_off in ((torch.float32, 0), (torch.bfloat16, 0), (torch.float32, t)):
+        pairs = bh * t * t if q_off else bh * t * (t + 1) // 2  # pairs the mask keeps
+        (q, k, v, do, lse, dsum), acc = _hop_inputs(gen, dtype, bh, t, t, d, q_off, 0, True)
         dq, dk, dv = acc
-        library_ms, backend = _sdpa_backward_ms(q, k, v, do)
+        library_ms, backend = _sdpa_backward_ms(q, k, v, do, causal=not q_off)
+        # q, k, v, dO read; lse, dsum read (f32); dq, dk, dv read and written (f32)
+        nbytes = 4 * bh * t * d * q.element_size() + 2 * bh * t * 4 + 6 * bh * t * d * 4
         row = {
-            "shape": [bh, t, d], "dtype": str(dtype)[6:], "causal": True,
+            "shape": [bh, t, d], "dtype": str(dtype)[6:], "causal": True, "q_off": q_off,
             "ms": time_ms(lambda: fb.flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv,
-                                                          0, 0, True), reps=5, per=3),
+                                                          q_off, 0, True), reps=5, per=3),
             "plain_ms": time_ms(lambda: fb.flash_block_backward_reference(
-                q, k, v, do, lse, dsum, dq, dk, dv, 0, 0, True), reps=3, per=1),
+                q, k, v, do, lse, dsum, dq, dk, dv, q_off, 0, True), reps=3, per=1),
             "library_ms": library_ms,
             "library_backend": backend,
-            "library_note": ("backward alone of scaled_dot_product_attention(is_causal=True): "
-                             "fresh dq/dk/dv, no accumulators"),
-            # q, k, v, dO read; lse, dsum read (f32); dq, dk, dv read and written (f32)
-            **_bound(10.0 * d * pairs, 4 * bh * t * d * q.element_size() + 2 * bh * t * 4
-                     + 6 * bh * t * d * 4, (mem, peak)),
+            "library_note": (f"backward alone of scaled_dot_product_attention(is_causal="
+                             f"{not q_off}): fresh dq/dk/dv, no accumulators"),
+            **(_f32_bounds(10.0 * d * pairs, nbytes, mem, tf32_peak, f32_peak)
+               if dtype == torch.float32 else _bound(10.0 * d * pairs, nbytes, (mem, bf16_peak))),
         }
-        rows[f"backward_{row['dtype']}"] = row
+        key = f"backward_{row['dtype']}" + ("_visible" if q_off else "")
+        rows[key] = row
         del q, k, v, do, lse, dsum, dq, dk, dv, acc
     q, k, v = (torch.randn((bh, t, d), generator=gen, device="cuda") for _ in range(3))
     m = torch.full((bh, t), fa.NEG_INF, device="cuda")
@@ -927,11 +976,14 @@ def train_timing_phase(name: str) -> dict:
         "nearest_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
             q[None], k[None], v[None], is_causal=True), reps=5, per=3),
         # q, k, v read; m, l, o read and written (all f32)
-        **_bound(4.0 * d * pairs, 3 * bh * t * d * 4 + 2 * (2 * bh * t * 4 + bh * t * d * 4),
-                 (mem, f32_peak)),
+        **_f32_bounds(4.0 * d * (bh * t * (t + 1) // 2),
+                      3 * bh * t * d * 4 + 2 * (2 * bh * t * 4 + bh * t * d * 4),
+                      mem, tf32_peak, f32_peak),
     }
     for key, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        if "bound_simt_ms" in row:
+            row["bound_simt_share"] = row["bound_simt_ms"] / row["ms"]
         print(json.dumps({"timing": f"train hop {key}", **row}), flush=True)
     return rows
 
@@ -1016,6 +1068,7 @@ def main() -> int:
         "launches": train_fwd_launches,
         "max_abs_err": train_err["flash_block_update_f32"],
         **entry(tt["update_f32"]),
+        "bound_simt_ms": tt["update_f32"]["bound_simt_ms"],
         "library_note": tt["update_f32"]["library_note"],
         "nearest_library_ms": tt["update_f32"]["nearest_library_ms"],
     }, {
@@ -1026,8 +1079,10 @@ def main() -> int:
         "launches": train_bwd_launches,
         "max_abs_err": train_err["flash_block_backward"],
         **entry(tt["backward_float32"]),
+        "bound_simt_ms": tt["backward_float32"]["bound_simt_ms"],
         "library_backend": tt["backward_float32"]["library_backend"],
         "dtypes": {"float32": entry(tt["backward_float32"]),
+                   "float32 fully visible hop": entry(tt["backward_float32_visible"]),
                    "bfloat16": {**entry(tt["backward_bfloat16"]),
                                 "library_backend": tt["backward_bfloat16"]["library_backend"]}},
     }]}), flush=True)

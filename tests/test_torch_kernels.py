@@ -354,14 +354,20 @@ from tpu_operator_torch.kernels import flash_backward as fb  # noqa: E402
 F32_RTOL = 1e-4  # f32 kernels: max|kernel - plain| / max|plain|, sums in another order
 BWD_RTOL = {torch.float32: F32_RTOL, torch.bfloat16: OUT_RTOL}
 
-# bh, tq, tk, d, q_off, k_off, causal: the train hop (one card), the
-# transformer check's, ragged shapes with partial masks, a non-causal hop
+# bh, tq, tk, d, q_off, k_off, causal: the train hop (one card), a fully
+# visible hop at its width (the four-card training's), the transformer
+# check's, ragged shapes with partial masks, a non-causal hop, head dims
+# between the kernels' templates, Tq and Tk not multiples of 64 at D 128
 TRAIN_CASES = [
     (128, 2048, 2048, 128, 0, 0, True),
+    (8, 2048, 2048, 128, 2048, 0, True),
     (16, 16, 16, 32, 0, 0, True),
     (4, 136, 200, 16, 200, 100, True),
     (2, 200, 136, 64, 0, 16, True),
     (3, 40, 72, 8, 0, 0, False),
+    (3, 200, 200, 40, 0, 0, True),
+    (3, 200, 264, 72, 64, 0, True),
+    (2, 300, 420, 128, 120, 0, True),
 ]
 
 
@@ -416,9 +422,13 @@ def test_flash_block_backward_fully_masked_hop_changes_nothing(cuda, dtype):
 # bh, tq, tk, d, q_off, k_off, causal, carried state
 FOLD_CASES = [
     (128, 2048, 2048, 128, 0, 0, True, False),
+    (8, 2048, 2048, 128, 2048, 0, True, True),
     (16, 16, 16, 32, 0, 0, True, False),
     (4, 136, 200, 16, 200, 100, True, True),
     (3, 40, 72, 8, 0, 0, False, True),
+    (3, 200, 200, 40, 0, 0, True, False),
+    (3, 200, 264, 72, 64, 0, True, True),
+    (2, 300, 420, 128, 120, 0, True, True),
     (4, 136, 200, 16, 0, 200, True, True),  # fully masked
 ]
 
@@ -443,3 +453,44 @@ def test_flash_block_update_f32_kernel_matches_plain(cuda, bh, tq, tk, d, q_off,
     rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *state, causal)
     assert _rel(m, rm) <= STATE_RTOL and _scaled(l, rl) <= F32_RTOL
     assert _scaled(o / l[..., None], ro / rl[..., None]) <= F32_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["backward f32", "backward bf16", "update f32"])
+@pytest.mark.parametrize("bh, tq, tk, d, q_off, k_off, causal",
+                         [(128, 2048, 2048, 128, 0, 0, True), (3, 200, 264, 72, 64, 0, True)])
+def test_training_kernels_are_deterministic(cuda, kernel, bh, tq, tk, d, q_off, k_off, causal):
+    """No atomics: two launches on identical inputs give the same bits."""
+    if kernel.startswith("backward"):
+        dtype = torch.float32 if kernel.endswith("f32") else torch.bfloat16
+        args, acc = _hop(cuda, dtype, bh, tq, tk, d, q_off, k_off, causal, seed=5)
+        runs = []
+        for _ in range(2):
+            out = tuple(a.clone() for a in acc)
+            fb.flash_block_backward(*args, *out, q_off, k_off, causal)
+            runs.append(out)
+    else:
+        q, k, v = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=5))
+        runs = []
+        for _ in range(2):
+            state = _fresh(bh, tq, d, cuda)
+            fa.flash_block_update(q, k, v, q_off, k_off, *state, causal)
+            runs.append(state)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_flash_block_backward_rejects_an_unaligned_view(cuda, dtype):
+    """The kernels copy 16 bytes at a time: a view off 16-byte alignment is
+    refused before any launch, never read wrong."""
+    args, acc = _hop(cuda, dtype, 2, 64, 64, 32, 0, 0, True)
+    q = args[0]
+    base = torch.zeros(q.numel() + 4, device=cuda, dtype=dtype)
+    unaligned = base[2:2 + q.numel()].view(q.shape)
+    unaligned.copy_(q)
+    before = fb.backward_launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fb.flash_block_backward(unaligned, *args[1:], *acc, 0, 0, True)
+    assert fb.backward_launches == before

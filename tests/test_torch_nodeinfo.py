@@ -40,3 +40,14 @@ def test_f32_peaks_outside_the_tensor_cores(generation, tflops):
     """The data sheets' f32 CUDA-core peaks: the denominator of the f32
     flash kernels' operations bound."""
     assert nodeinfo.generation_info(generation).peak_fp32_tflops == tflops
+
+
+@pytest.mark.parametrize("generation, tflops", [
+    ("h100-sxm", 494.5), ("h100-pcie", 378.0), ("h100-nvl", 417.5), ("h200", 494.5),
+    ("unknown", 0.0),
+])
+def test_tf32_peaks_are_half_the_bf16_peak(generation, tflops):
+    """The data sheets' dense TF32 tensor-core peaks: the denominator of the
+    f32 flash kernels' operations bound, three TF32 passes per product."""
+    info = nodeinfo.generation_info(generation)
+    assert info.peak_tf32_tflops == tflops == info.peak_bf16_tflops / 2

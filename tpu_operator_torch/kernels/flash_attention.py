@@ -12,7 +12,8 @@
   (``tpu_operator/workloads/ring_attention.py:118-218``): one K/V block
   folded into the carried (m, l, o) state, in place.  bf16 q/k/v go to the
   ``mma.sync`` entry here; f32 q/k/v, the transformer step's (its weights
-  are f32), to ``tpu_flash_block_update_f32`` in ``csrc/flash_backward.cu``.
+  are f32), to ``tpu_flash_block_update_f32`` in ``csrc/flash_backward.cu``
+  (3xTF32 ``mma.sync``: f32 products on the tensor cores).
 
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.

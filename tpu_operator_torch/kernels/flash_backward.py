@@ -8,8 +8,10 @@ backward of ring attention runs once per hop.  It recomputes the hop's
 probabilities from the forward's saved log-sum-exp and adds the hop's dq, dk
 and dv into the travelling f32 accumulators, in place.  q, k, v and dO are
 f32 (the transformer step's) or bf16; lse, dsum and the accumulators f32.
-A wrapper takes the plain version for tensors on the CPU and launches the
-kernel for tensors on a card.
+On a card the products run on the tensor cores: 3xTF32 for f32 (never one
+TF32 pass), bf16 ``mma.sync`` for bf16; two kernels without atomics, so two
+launches on the same inputs give the same bits.  A wrapper takes the plain
+version for tensors on the CPU and launches the kernel for tensors on a card.
 """
 
 from __future__ import annotations
