@@ -40,11 +40,13 @@ plain PyTorch version.  Phases, each fatal on failure:
    a finite loss, tokens/s > 0 and attention on ``cuda-flash-fwd-bwd``,
    and the launch counts of B3's f32 entry and of B4 above 0; prints every
    step time
-7. kernel    — each kernel against its plain version on the card: the f32
-   add bit-identical (tolerance 0) at the gate's shape, a ragged shape and
-   a view one element off 16-byte alignment; the flash kernels at the main
-   paths' shapes (the forward through its plan, the path printed), ragged
-   serving shapes, each forward path at the shapes that stress it (Tq not
+7. kernel    — each kernel against its plain version on the card: the add
+   bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
+   f16 at the gate's shape, a ragged shape and a view one element off
+   16-byte alignment, and at sizes that end mid-vector and mid-block; the
+   flash kernels at the main paths' shapes (the forward through its plan,
+   the path printed), ragged serving shapes, each forward path at the
+   shapes that stress it (Tq not
    a multiple of 128, diagonals off the tile grid, every row masked: out
    exactly 0 and lse exactly -1e30; a one-row tail, a ragged cache, BH 1,
    non-causal) and a fully masked block: per case,
@@ -53,8 +55,10 @@ plain PyTorch version.  Phases, each fatal on failure:
    1e-5 relative (f32 sums in another order); the fully masked block leaves
    the state bit-identical; the DMA copy bit-identical (as int32 or int16
    views, tolerance 0) on random bit patterns with NaN payloads, at the toy
-   shapes, the probe shape and in bf16, and the wrapper's alignment
-   rejections; B4 (f32 and bf16) and B3's f32 entry at the train hop
+   shapes, the probe shape at 1, 2 and 16 passes, in bf16, with pieces
+   that are not whole tiles, one slot, more slots than a block's pieces
+   and fewer tiles than SMs, and the wrapper's alignment rejections; B4
+   (f32 and bf16) and B3's f32 entry at the train hop
    (128, 2048, 128) causal, a fully visible hop at its width (q_off 2048),
    the transformer check's (16, 16, 32), ragged shapes, head dims 40 and 72,
    Tq and Tk off the 64 grid at D 128, and a fully masked block, which must
@@ -67,8 +71,11 @@ plain PyTorch version.  Phases, each fatal on failure:
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
    forward's planned path at the prefill and decode shapes beside its
-   ``mma.sync`` kernel at the same shape (``mma_ms``); the DMA
-   copy at the probe's shape at 1 and 16 passes per launch; B4 and B3's
+   ``mma.sync`` kernel at the same shape (``mma_ms``); the add at the
+   gate's shape and at 128 MiB per operand in f32 and at the gate's shape
+   in bf16 (``shapes``); the DMA copy at the probe's shape at 1 and 16
+   passes per launch, and at 1 pass by ring depth (``ms_by_slots``, 2, 4
+   and 8) and by tile (``ms_by_tile``, 8, 16 and 32 KiB); B4 and B3's
    f32 entry at the train hop (B4 f32 also at the fully visible hop), B4's
    library call the backward alone of ``scaled_dot_product_attention`` (its
    backend named); the f32 rows bound by 3xTF32 (three passes over the
@@ -313,6 +320,8 @@ def probes_phase(n_cards: int) -> int:
         share = r["fraction_of_peak"]
         require(share is not None and 0 < share <= MAX_SHARE,
                 f"{label} at {share} of the memory rate")
+    gap = dma["fraction_of_peak"] - hbm["fraction_of_peak"]
+    print(f"probes: hbm-dma minus hbm {gap!r} of the memory rate (aim: within 0.03)", flush=True)
     per_size = ", ".join(f"{r['size']}: {r['tflops']!r}" for r in mm["results"])
     ring = ""
     if n_cards > 1:
@@ -367,34 +376,50 @@ def training_phase(n_cards: int) -> tuple:
 
 
 def kernel_phase() -> float:
-    """Bit-for-bit parity of the kernel with its plain version."""
+    """Bit-for-bit parity of the vector add with its plain version, in f32,
+    bf16 and f16 (compared as int32 or int16 views, tolerance 0)."""
     import torch
 
     from tpu_operator_torch.kernels import vector_add as va
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def pair(shape, offset=0):
+    def pair(shape, offset=0, dtype=torch.float32):
         n = math.prod(shape) + offset
-        x = torch.randn(n, generator=gen, device="cuda")[offset:].view(shape)
-        y = torch.randn(n, generator=gen, device="cuda")[offset:].view(shape)
+        x = torch.randn(n, generator=gen, device="cuda").to(dtype)[offset:].view(shape)
+        y = torch.randn(n, generator=gen, device="cuda").to(dtype)[offset:].view(shape)
         return x, y
 
+    # 256 threads of one 16-byte vector each: a block covers 1024 f32 or
+    # 2048 bf16/f16 elements
     cases = {
         "gate (2048, 512)": pair(GATE_SHAPE),
         "ragged (1000, 509)": pair((1000, 509)),
         "unaligned (2048, 512) + 1 element": pair(GATE_SHAPE, offset=1),
+        "mid-vector (4099,)": pair((4099,)),
+        "mid-block (3, 1000)": pair((3, 1000)),
+        "one block and a tail (1027,)": pair((1027,)),
     }
-    require(cases["unaligned (2048, 512) + 1 element"][0].data_ptr() % 16 != 0,
-            "unaligned case is aligned")
+    for dtype in (torch.bfloat16, torch.float16):
+        name = str(dtype)[6:]
+        cases.update({
+            f"{name} gate (2048, 512)": pair(GATE_SHAPE, dtype=dtype),
+            f"{name} ragged (1000, 509)": pair((1000, 509), dtype=dtype),
+            f"{name} unaligned (2048, 512) + 1 element": pair(GATE_SHAPE, 1, dtype),
+            f"{name} mid-block (4103,)": pair((4103,), dtype=dtype),
+        })
+    for label, (x, y) in cases.items():
+        if "unaligned" in label:
+            require(x.data_ptr() % 16 != 0, f"{label} is aligned")
     worst = 0.0
     for label, (x, y) in cases.items():
         out = va.vector_add_kernel(x, y)
         torch.cuda.synchronize()
         ref = va.vector_add_reference(x, y)
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        same_bits = bool(torch.equal(out.view(torch.int32), ref.view(torch.int32)))
+        err = float((out.float() - ref.float()).abs().max())
+        ints = torch.int32 if x.dtype == torch.float32 else torch.int16
+        same_bits = bool(torch.equal(out.view(ints), ref.view(ints)))
         print(f"kernel vector_add {label}: max_abs_err={err!r} bit_identical={same_bits}", flush=True)
         require(same_bits, f"vector_add differs from x + y at {label}")
         worst = max(worst, err)
@@ -685,11 +710,23 @@ def dma_kernel_phase() -> float:
           for i, c, s in ((2, 8, 2), (1, 8, 1), (1, 8, 4), (3, 16, 2))),
         (f"probe ({rows}, {cols}) iters=1", (rows, cols), torch.float32, 1, chunk, slots),
         (f"probe ({rows}, {cols}) iters=2, 64 slots", (rows, cols), torch.float32, 2, chunk, 64),
+        (f"probe ({rows}, {cols}) iters=16", (rows, cols), torch.float32, 16, chunk, slots),
         ("bf16 (256, 512) iters=2", (256, 512), torch.bfloat16, 2, 64, 2),
+        # 80000-byte chunks in 32 KiB tiles: the rest of the last round is
+        # split into pieces that are not whole tiles
+        ("partial tiles (5000, 500) iters=3", (5000, 500), torch.float32, 3, 40, 4),
+        ("one slot (65536, 512) iters=2", (65536, 512), torch.float32, 2, 2048, 1),
+        # 2 KiB tiles, one per block: a ring deeper than a block's pieces
+        ("more slots than pieces (64, 512) iters=2", (64, 512), torch.float32, 2, 1, 64),
+        # 16 tiles for 132 SMs
+        ("smaller than a tile per SM (1024, 128) iters=2", (1024, 128), torch.float32, 2, 64, 4),
     ]
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     worst = 0.0
     for label, shape, dtype, iters, chunk_rows, n_slots in cases:
         x = _random_bits(gen, shape, dtype)
+        tile = dp.tile_bytes(x, chunk_rows, n_slots)
+        nbytes = x.numel() * x.element_size()
         out = dp.dma_pipeline_copy(x, iters, chunk_rows, n_slots)
         torch.cuda.synchronize()
         ref = dp.dma_pipeline_copy_reference(x, iters)
@@ -697,8 +734,9 @@ def dma_kernel_phase() -> float:
         same = bool(torch.equal(out.view(ints), ref.view(ints)))
         finite = ref.isfinite()
         err = _abs_err(out[finite], ref[finite])
-        print(f"kernel dma_pipeline_copy {label}: tile {dp.tile_bytes(x, chunk_rows, n_slots)} "
-              f"bytes, max_abs_err={err!r} bit_identical={same}", flush=True)
+        print(f"kernel dma_pipeline_copy {label}: tile {tile} bytes, "
+              f"{dp.grid_blocks(nbytes, tile, n_slots, n_sm)} blocks, "
+              f"max_abs_err={err!r} bit_identical={same}", flush=True)
         require(same, f"dma_pipeline_copy differs from its plain version at {label}")
         worst = max(worst, err)
         del x, out, ref
@@ -740,6 +778,9 @@ def time_ms(fn, reps: int = 25, per: int = 20) -> float:
 
 
 def timing_phase(name: str) -> dict:
+    """The vector add, its plain version and ``torch.add`` at the gate's
+    shape and at 128 MiB per operand in f32, and at the gate's shape in
+    bf16; returns the rows by label."""
     import torch
 
     from tpu_operator_torch.kernels import vector_add as va
@@ -747,26 +788,30 @@ def timing_phase(name: str) -> dict:
     rate = peaks(name)[0]
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = {}
-    for shape in (GATE_SHAPE, BIG_SHAPE):
-        x = torch.randn(shape, generator=gen, device="cuda")
-        y = torch.randn(shape, generator=gen, device="cuda")
-        nbytes = 3 * x.numel() * 4  # read x and y once, write out once
+    for shape, dtype in ((GATE_SHAPE, torch.float32), (BIG_SHAPE, torch.float32),
+                         (GATE_SHAPE, torch.bfloat16)):
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        y = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        nbytes = 3 * x.numel() * x.element_size()  # read x and y once, write out once
         row = {
             "shape": list(shape),
+            "dtype": str(dtype)[6:],
             "ms": time_ms(lambda: va.vector_add_kernel(x, y)),
             "plain_ms": time_ms(lambda: va.vector_add_reference(x, y)),
             "library_ms": time_ms(lambda: torch.add(x, y)),
             "bound_ms": nbytes / rate * 1e3,
+            "bound_by": "bytes",
             "bytes": nbytes,
         }
         row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["library_bound_share"] = row["bound_ms"] / row["library_ms"]
         if nbytes < 50e6:
             row["note"] = ("working set fits in the 50 MB L2: back-to-back runs read "
                            "it from L2, so a bound share above 1 is expected")
         print(json.dumps({"timing": "vector_add", **row}), flush=True)
-        rows[tuple(shape)] = row
+        rows[f"({shape[0]}, {shape[1]}) {row['dtype']}"] = row
         del x, y
-    return rows[GATE_SHAPE]
+    return rows
 
 
 def _bound(flops: float, nbytes: float, rates: tuple) -> dict:
@@ -894,6 +939,17 @@ def dma_timing_phase(name: str) -> dict:
         row["bound_share"] = row["bound_ms"] / row["ms"]
         print(json.dumps({"timing": f"dma_pipeline_copy iters={iters}", **row}), flush=True)
         result[iters] = row
+    # at 1 pass: the ring's depth (the function's own parameter; the tile
+    # shrinks to fit 8 slots), and the tile at the probe's 4 slots, which
+    # sets how many rings share an SM (1 at 32 KiB, 3 at 16 KiB, 6 at 8 KiB)
+    result[1]["ms_by_slots"] = {
+        n: time_ms(lambda: dp.dma_pipeline_copy(x, 1, chunk, n)) for n in (2, 4, 8)}
+    result[1]["ms_by_tile"] = {
+        tile: time_ms(lambda: dp._copy_on(x, 1, tile, slots)) for tile in (8192, 16384, 32768)}
+    print(json.dumps({"timing": "dma_pipeline_copy iters=1 by ring",
+                      "ms_by_slots": result[1]["ms_by_slots"],
+                      "ms_by_tile": result[1]["ms_by_tile"],
+                      "library_ms": time_ms(lambda: out.copy_(x))}), flush=True)
     return result
 
 
@@ -1005,7 +1061,8 @@ def main() -> int:
     flash_err = flash_kernel_phase()
     dma_err = dma_kernel_phase()
     train_err = train_kernel_phase()
-    t = timing_phase(name)
+    vt = timing_phase(name)
+    t = vt["(2048, 512) float32"]
     ft = flash_timing_phase(name)
     dt = dma_timing_phase(name)
     tt = train_timing_phase(name)
@@ -1028,6 +1085,8 @@ def main() -> int:
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": t["library_ms"],
+        "shapes": {key: {**entry(row), "bound_share": row["bound_share"]}
+                   for key, row in vt.items()},
     }, {
         "name": "flash_attention_local",
         "route": "cuda",
@@ -1060,6 +1119,8 @@ def main() -> int:
         **entry(dt[1]),
         "library_note": dt[1]["library_note"],
         "shapes": {"iters=1": entry(dt[1]), "iters=16": entry(dt[16])},
+        "ms_by_slots": dt[1]["ms_by_slots"],
+        "ms_by_tile": dt[1]["ms_by_tile"],
     }, {
         "name": "flash_block_update_f32",
         "route": "cuda",

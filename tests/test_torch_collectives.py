@@ -21,18 +21,26 @@ from tpu_operator_torch.obs import flight  # noqa: E402
 from tpu_operator_torch.workloads import collectives as tc  # noqa: E402
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("shape", [(64, 512), (300, 600)])
-def test_vector_add_plain_version_matches_pallas(shape):
+def test_vector_add_plain_version_matches_pallas(shape, dtype):
     """(300, 600) has partial edge blocks in both dimensions of the Pallas
-    grid.  One f32 add either way: exact equality."""
+    grid.  One add rounded once to the dtype either way: exact equality
+    (bf16 and f16 compared after an exact widening to f32)."""
     rng = np.random.default_rng(0)
     x = rng.standard_normal(shape, dtype=np.float32)
     y = rng.standard_normal(shape, dtype=np.float32)
-    ref = np.asarray(jc.pallas_vector_add(jnp.asarray(x), jnp.asarray(y)))
-    tx, ty = torch.from_numpy(x), torch.from_numpy(y)
-    np.testing.assert_array_equal(va.vector_add_reference(tx, ty).numpy(), ref)
+    tx, ty = (torch.from_numpy(a).to(getattr(torch, dtype)) for a in (x, y))
+    # the same rounded inputs on both sides
+    jx, jy = (jnp.asarray(t.float().numpy()).astype(getattr(jnp, dtype)) for t in (tx, ty))
+    ref = jc.pallas_vector_add(jx, jy)
+    assert ref.dtype == jnp.dtype(dtype)
+    ref = np.asarray(ref.astype(jnp.float32))
+    plain = va.vector_add_reference(tx, ty)
+    assert plain.dtype == tx.dtype
+    np.testing.assert_array_equal(plain.float().numpy(), ref)
     # the wrapper on CPU tensors is the plain version
-    np.testing.assert_array_equal(va.vector_add_kernel(tx, ty).numpy(), ref)
+    np.testing.assert_array_equal(va.vector_add_kernel(tx, ty).float().numpy(), ref)
 
 
 def test_vector_add_check():

@@ -40,11 +40,12 @@ def test_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize(
     "x, y, err",
     [
-        (torch.ones(4, dtype=torch.bfloat16), torch.ones(4, dtype=torch.bfloat16), TypeError),
+        (torch.ones(4, dtype=torch.float64), torch.ones(4, dtype=torch.float64), TypeError),
         (torch.ones(4), torch.ones(5), ValueError),
         (torch.ones(4, 4).t(), torch.ones(4, 4), ValueError),
+        (torch.ones(4), torch.ones(4, dtype=torch.bfloat16), TypeError),
     ],
-    ids=["bf16", "shape", "non-contiguous"],
+    ids=["f64", "shape", "non-contiguous", "mixed-dtypes"],
 )
 def test_wrapper_rejects_what_the_kernel_does_not_take(x, y, err):
     with pytest.raises(err):
@@ -53,10 +54,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(x, y, err):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape, offset", [((2048, 512), 0), ((1000, 509), 0),
-                                           ((2048, 512), 1), ((3,), 0), ((7,), 1)])
+                                           ((2048, 512), 1), ((3,), 0), ((7,), 1),
+                                           ((4099,), 0), ((3, 1000), 0), ((1027,), 0)])
 def test_kernel_bit_identical_to_plain(cuda, shape, offset):
     """One IEEE f32 add either way: tolerance 0, on the vector path, the
-    masked tail and the unaligned scalar path."""
+    masked tail and the unaligned scalar path; a block covers 1024 f32, so
+    4099 and 3000 elements end mid-vector and mid-block."""
     gen = torch.Generator(device=cuda).manual_seed(0)
     n = math.prod(shape) + offset
     x = torch.randn(n, generator=gen, device=cuda)[offset:].view(shape)
@@ -70,8 +73,27 @@ def test_kernel_bit_identical_to_plain(cuda, shape, offset):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=["bf16", "f16"])
+@pytest.mark.parametrize("shape, offset", [((2048, 512), 0), ((1000, 509), 0),
+                                           ((2048, 512), 1), ((4103,), 0), ((7,), 0)])
+def test_kernel_bit_identical_to_plain_half(cuda, dtype, shape, offset):
+    """bf16 and f16: widened to f32, added, rounded once to nearest-even, as
+    ``x + y`` on the card; compared as int16, tolerance 0.  8 elements a
+    vector, 2048 a block: 4103 ends mid-vector and mid-block."""
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    n = math.prod(shape) + offset
+    x = torch.randn(n, generator=gen, device=cuda).to(dtype)[offset:].view(shape)
+    y = torch.randn(n, generator=gen, device=cuda).to(dtype)[offset:].view(shape)
+    before = va.launches
+    out = va.vector_add_kernel(x, y)
+    torch.cuda.synchronize()
+    assert va.launches == before + 1 and out.dtype == dtype
+    assert torch.equal(out.view(torch.int16), va.vector_add_reference(x, y).view(torch.int16))
+
+
+@pytest.mark.cuda
 def test_cuda_tensor_of_wrong_dtype_raises(cuda):
-    x = torch.ones(8, device=cuda, dtype=torch.float16)
+    x = torch.ones(8, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         va.vector_add_kernel(x, x)
 
@@ -313,11 +335,32 @@ def test_dma_wrapper_rejects_what_the_kernel_does_not_take(x, iters, match):
         dp.dma_pipeline_copy(x, iters, 8, 1)
 
 
+@pytest.mark.parametrize(
+    "nbytes, tile, slots, blocks",
+    [(256 << 20, 32768, 4, 132),      # the probe: one ring of 4 x 32 KiB per SM
+     (256 << 20, 32768, 2, 396),      # 2 slots: three rings per SM
+     (256 << 20, 3616, 64, 132),      # 64 slots of 3616 bytes
+     (256 << 20, 16384, 4, 396),
+     (512 << 10, 32768, 4, 16),       # fewer tiles than SMs: one block per tile
+     (128 << 10, 2048, 64, 64),
+     (16, 16, 1, 1)],
+)
+def test_dma_grid_fills_the_sms_with_rings(nbytes, tile, slots, blocks):
+    """As many blocks as fit on 132 SMs at once (228 KiB each, 1 KiB kept
+    per block, at most 32 blocks), and no more than tiles."""
+    assert dp.grid_blocks(nbytes, tile, slots, 132) == blocks
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "shape, iters, chunk_rows, slots",
     [((32, 512), 2, 8, 2), ((32, 512), 1, 8, 1), ((32, 512), 1, 8, 4), ((32, 512), 3, 16, 2),
-     ((131072, 512), 1, 2048, 4), ((131072, 512), 2, 2048, 64)],
+     ((131072, 512), 1, 2048, 4), ((131072, 512), 2, 2048, 64),
+     ((131072, 512), 16, 2048, 4),   # the probe's shape at 16 passes
+     ((5000, 500), 3, 40, 4),        # the last round split into pieces under a tile
+     ((65536, 512), 2, 2048, 1),     # one slot: each reload waits on the store just issued
+     ((64, 512), 2, 1, 64),          # 64 slots, one 2 KiB piece per block
+     ((1024, 128), 2, 64, 4)],       # 16 tiles for more SMs than that
 )
 def test_dma_kernel_bit_identical_to_plain(cuda, shape, iters, chunk_rows, slots):
     """A copy is bit for bit: compared as int32, NaN payloads included."""

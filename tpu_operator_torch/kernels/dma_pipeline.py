@@ -7,7 +7,8 @@ Replaces the Pallas TPU kernel ``_pipeline_kernel`` / ``dma_pipeline_copy``
 bit.  ``chunk_rows`` and ``slots`` keep the reference's contract and its
 ``ValueError``s.  On the card a chunk of the TPU's size does not fit in a
 block's shared memory, so the kernel streams tiles of at most 32 KiB
-(``tile_bytes``), each block with its own ``slots``-deep ring.
+(``tile_bytes``), each block with its own ``slots``-deep ring, as many
+blocks as fit on the SMs at once (``grid_blocks``).
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ launches = 0
 
 MAX_TILE_BYTES = 32 * 1024   # 16 rows of 512 f32: a slot of the shared-memory ring
 SMEM_BYTES = 227 * 1024      # shared memory a Hopper block can opt in to
+SM_SMEM_BYTES = 228 * 1024   # shared memory of a Hopper SM, for all its blocks
+SM_BLOCK_RESERVE = 1024      # shared memory the runtime keeps for each block
+SM_MAX_BLOCKS = 32           # resident blocks a Hopper SM holds at most
 _BARRIER_BYTES = 128         # per 16 slots: the mbarriers, rounded up as the kernel does
 
 
@@ -46,6 +50,16 @@ def tile_bytes(x: torch.Tensor, chunk_rows: int, slots: int) -> int:
         raise ValueError(f"slots={slots} do not fit in a block's {SMEM_BYTES} bytes of "
                          "shared memory")
     return tile
+
+
+def grid_blocks(nbytes: int, tile: int, slots: int, n_sm: int) -> int:
+    """The kernel's grid: as many blocks as fit on the ``n_sm`` SMs at once,
+    each with its ring of ``slots`` tiles beside the others' in the SM's
+    shared memory (one ring per SM at the probe's 4 slots of 32 KiB, three
+    at 2 slots), and no more blocks than tiles."""
+    smem = _BARRIER_BYTES * ((slots + 15) // 16) + slots * tile
+    per_sm = max(1, min(SM_MAX_BLOCKS, SM_SMEM_BYTES // (smem + SM_BLOCK_RESERVE)))
+    return min(n_sm * per_sm, -(-nbytes // tile))
 
 
 def _check(x: torch.Tensor, iters: int, chunk_rows: int, slots: int) -> None:
@@ -76,7 +90,7 @@ def _bind() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
     return lib
@@ -87,20 +101,28 @@ def dma_pipeline_copy(x: torch.Tensor, iters: int, chunk_rows: int, slots: int) 
     (bit-identical to ``x``).  Through the CUDA kernel for a tensor on a
     card (launched on the current stream, not synchronized); the plain
     version for a tensor on the CPU."""
-    global launches
     _check(x, iters, chunk_rows, slots)
     tile = tile_bytes(x, chunk_rows, slots)
     if x.device.type == "cpu":
         return dma_pipeline_copy_reference(x, iters)
     if x.device.type != "cuda":
         raise ValueError(f"dma_pipeline_copy runs on cuda or cpu, not {x.device}")
+    return _copy_on(x, iters, tile, slots)
+
+
+def _copy_on(x: torch.Tensor, iters: int, tile: int, slots: int) -> torch.Tensor:
+    """Launch the kernel with this tile and ring on a checked CUDA tensor
+    (``chip_smoke.py`` times tile sizes with it)."""
+    global launches
     lib = _bind()
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    nbytes = x.numel() * x.element_size()
+    blocks = grid_blocks(nbytes, tile, slots,
+                         torch.cuda.get_device_properties(x.device).multi_processor_count)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.tpu_dma_pipeline_copy(
-            x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(), tile, slots, iters,
-            stream,
+            x.data_ptr(), out.data_ptr(), nbytes, tile, slots, iters, blocks, stream,
         )
     if rc != 0:
         raise RuntimeError(f"dma_pipeline kernel launch failed: cudaError {rc}")
