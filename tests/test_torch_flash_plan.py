@@ -1,5 +1,6 @@
-"""The forward's plan and its split over the keys (``tpu_operator_torch.
-kernels.flash_attention``), on the CPU.
+"""The forward's plan and its split over the keys, and the block update's
+cut of the keys (``tpu_operator_torch.kernels.flash_attention``), on the
+CPU.
 
 ``flash_attention_split_reference`` cuts the keys as the split kernel does
 and merges the partial states as its combine pass does; here it is held
@@ -12,6 +13,8 @@ handed to both sides.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch = pytest.importorskip("torch")
 
@@ -175,3 +178,42 @@ def test_split_reference_matches_the_plain_forward_on_the_decode_plan():
     ref_out, ref_lse = fa.flash_attention_local_reference(q, k, v, True, q_off=2040)
     assert float((out.float() - ref_out.float()).abs().max()) <= OUT_TOL
     assert float(((lse - ref_lse).abs() / ref_lse.abs().clamp_min(1.0)).max()) <= 1e-5
+
+
+RING_HOP = (4, 512)  # the ring-attention check's hop per card: BH, Tq
+
+
+def test_ring_hop_split_fills_the_card():
+    """The ring hop on the split update: one 16-row block per q tile and
+    head, one wave on an H100's SMs, at most 2 of the 8 tiles per warp."""
+    bh, tq = RING_HOP
+    ranges = fa._update_warp_ranges(tq, tq, True, 0, 0)
+    assert bh * len(ranges) == 128 <= N_SM
+    assert max(hi - lo for _, warps in ranges for lo, hi in warps) == 2
+
+
+def _visible_tiles(q0, q_end, tk, causal, q_off, k_off) -> set:
+    """The 64-key tiles in which some row of [q0, q_end) sees some key,
+    by enumerating the (row, key) pairs."""
+    rows = q_off + np.arange(q0, q_end)[:, None]
+    keys = np.arange(tk)[None, :]
+    seen = np.ones((q_end - q0, tk), bool) if not causal else rows >= k_off + keys
+    return set(np.unique(np.nonzero(seen)[1] // fa.SPLIT_TILE).tolist())
+
+
+@settings(max_examples=300, deadline=None, database=None)
+@given(tq=st.integers(1, 80), tk=st.integers(1, 400), causal=st.booleans(),
+       q_off=st.integers(0, 500), k_off=st.integers(0, 500))
+def test_update_warp_ranges_cover_each_live_tile_once(tq, tk, causal, q_off, k_off):
+    """Every 16-row q tile: its warps' ranges are contiguous, in order, and
+    together hold each tile in which the q tile sees a key exactly once,
+    and no tile in which it sees none."""
+    ranges = fa._update_warp_ranges(tq, tk, causal, q_off, k_off)
+    assert [q0 for q0, _ in ranges] == list(range(0, tq, fa.SPLIT_ROWS))
+    for q0, warps in ranges:
+        assert len(warps) == fa.SPLIT_WARPS
+        assert all(a[1] == b[0] for a, b in zip(warps, warps[1:]))
+        tiles = [t for lo, hi in warps for t in range(lo, hi)]
+        want = _visible_tiles(q0, min(q0 + fa.SPLIT_ROWS, tq), tk, causal, q_off, k_off)
+        assert sorted(tiles) == tiles and len(set(tiles)) == len(tiles)
+        assert set(tiles) == want

@@ -271,25 +271,62 @@ def test_forward_paths_reject_what_they_do_not_take(cuda, path):
     assert fa.forward_path_launches == before
 
 
+# the bf16 block update: label, bh, tq, tk, d, q_off, k_off, causal.  The
+# ring hop's (4, 512, 128) at q_off 1024 first, then the shapes that stress
+# the cut of the keys over 16-row q tiles and their warps
+UPDATE_CASES = [
+    ("diagonal", 4, 512, 512, 128, 1024, 1024, True),
+    ("half-visible", 4, 512, 512, 128, 1024, 768, True),
+    ("fully visible hop", 4, 512, 512, 128, 1024, 512, True),
+    ("non-causal", 4, 512, 512, 128, 1024, 0, False),
+    ("fully masked", 4, 512, 512, 128, 1024, 1600, True),
+    ("some q tiles see no key", 4, 512, 512, 128, 1024, 1280, True),
+    ("ragged 200 x 200 D 64", 3, 200, 200, 64, 0, 0, True),
+    ("136 x 200 D 16, partly visible", 4, 136, 200, 16, 200, 100, True),
+    ("BH 1", 1, 512, 512, 128, 1024, 1024, True),
+    ("D 8", 4, 40, 72, 8, 64, 48, True),
+]
+UPDATE_IDS = [c[0] for c in UPDATE_CASES]
+
+
+def _update_inputs(device, bh, tq, tk, d, q_off, k_off, seed=1):
+    """q, k, v and a carried state: an earlier, fully visible block folded
+    in, and every third row left fresh (NEG_INF, 0, 0)."""
+    q, k, v = _qkv(device, bh, tq, tk, d, seed=seed)
+    _, k0, v0 = _qkv(device, bh, tq, tk, d, seed=seed + 1)
+    state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *_fresh(bh, tq, d, device),
+                                            False)
+    for x, fresh in zip(state, _fresh(bh, tq, d, device)):
+        x[:, ::3] = fresh[:, ::3]
+    return (q, k, v), state
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("k_off, causal", [(1024, True), (768, True), (0, False), (1600, True)],
-                         ids=["diagonal", "half-visible", "non-causal", "fully-masked"])
-def test_flash_block_update_kernel_matches_plain(cuda, k_off, causal):
-    bh, t, d = 4, 512, 128
-    q, k, v = _qkv(cuda, bh, t, t, d, seed=1)
-    _, k0, v0 = _qkv(cuda, bh, t, t, d, seed=2)
-    state = fa.flash_block_update_reference(q, k0, v0, 1024, 512, *_fresh(bh, t, d, cuda), True)
-    m, l, o = (x.clone() for x in state)
+@pytest.mark.parametrize("case", UPDATE_CASES, ids=UPDATE_IDS)
+def test_flash_block_update_kernel_matches_plain(cuda, case):
+    """Within the limits of the plain version, and bit-identical across two
+    launches on the same inputs (no atomics, a fixed merge order); a fully
+    masked block leaves the state bit for bit as it was."""
+    _, bh, tq, tk, d, q_off, k_off, causal = case
+    (q, k, v), state = _update_inputs(cuda, bh, tq, tk, d, q_off, k_off)
+    runs = [tuple(x.clone() for x in state) for _ in range(2)]
     before = fa.block_update_launches
-    fa.flash_block_update(q, k, v, 1024, k_off, m, l, o, causal)
+    for run in runs:
+        fa.flash_block_update(q, k, v, q_off, k_off, *run, causal)
     torch.cuda.synchronize()
-    assert fa.block_update_launches == before + 1
-    if causal and k_off > 1024 + t:
+    assert fa.block_update_launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    m, l, o = runs[0]
+    if causal and k_off > q_off + tq:
         assert all(torch.equal(a, b) for a, b in zip((m, l, o), state))
         return
-    rm, rl, ro = fa.flash_block_update_reference(q, k, v, 1024, k_off, *state, causal)
+    rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *state, causal)
     assert _rel(m, rm) <= STATE_RTOL and _rel(l, rl) <= STATE_RTOL
-    assert _scaled(o / l[..., None], ro / rl[..., None]) <= OUT_RTOL
+
+    def out(o_, l_):
+        return o_ / torch.where(l_ > 0, l_, 1.0)[..., None]
+
+    assert _scaled(out(o, l), out(ro, rl)) <= OUT_RTOL
 
 
 # ---------------------------------------------------------------------------

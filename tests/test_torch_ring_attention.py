@@ -109,6 +109,49 @@ def test_flash_block_update_matches_pallas(q_off, k_off, causal):
     assert np.max(np.abs(out - ref_out)) <= OUT_TOL
 
 
+# label: bh, tq, tk, q_off, k_off, causal.  Key tiles of 64, q tiles of 16:
+# 320 keys are 5 tiles, so some warps fold two and some q tiles fewer than
+# four; 40 x 72 leaves warps with no tile
+SPLIT_CASES = {
+    "diagonal": (2, 320, 320, 320, 320, True),
+    "offsets": (2, 48, 320, 300, 0, True),
+    "non-causal": (2, 48, 320, 0, 500, False),
+    "fully-masked": (2, 48, 320, 0, 100, True),
+    "ragged-40x72": (3, 40, 72, 64, 48, True),
+    "ragged-some-q-tiles-see-no-key": (3, 40, 72, 0, 20, True),
+}
+
+
+@pytest.mark.parametrize("d", [8, 16])
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_flash_block_update_split_reference_matches_pallas(case, d):
+    """The split update's fold order (each warp's range of live 64-key tiles
+    from a fresh state, merged with the carried state per 16-row q tile)
+    against the reference's Pallas kernel.  Half the rows carry a state,
+    half start fresh.  A fully masked block, and every q tile that sees no
+    key, keep the state exactly."""
+    bh, tq, tk, q_off, k_off, causal = SPLIT_CASES[case]
+    rng = np.random.default_rng(6 + d)
+    m, l, o = (np.array(x) for x in _state(rng, bh, tq, d))
+    m[:, ::2], l[:, ::2], o[:, ::2] = jra.NEG_INF, 0.0, 0.0
+    _, tq_, jq = _bf16(rng, (bh, tq, d))
+    _, tk_, jk = _bf16(rng, (bh, tk, d))
+    _, tv_, jv = _bf16(rng, (bh, tk, d))
+    ref = [np.asarray(x) for x in jra.flash_block_update(jq, jk, jv, q_off, k_off,
+                                                         *map(jnp.asarray, (m, l, o)), causal)]
+    mine = [x.numpy() for x in fa.flash_block_update_split_reference(
+        tq_, tk_, tv_, q_off, k_off, *map(torch.from_numpy, (m, l, o)), causal)]
+    for q0, ranges in fa._update_warp_ranges(tq, tk, causal, q_off, k_off):
+        if all(lo == hi for lo, hi in ranges):  # sees no key: exactly as it was
+            rows = slice(q0, q0 + fa.SPLIT_ROWS)
+            for a, b in zip(mine, (m, l, o)):
+                np.testing.assert_array_equal(a[:, rows], b[:, rows])
+    (mm, ml, mo), (rm, rl, ro) = mine, ref
+    assert _rel(mm, rm) <= STATE_RTOL and _rel(ml, rl) <= STATE_RTOL
+    out, ref_out = (x / np.where(y > 0, y, 1.0)[..., None] for x, y in ((mo, ml), (ro, rl)))
+    assert np.max(np.abs(out - ref_out)) <= OUT_TOL
+
+
 @pytest.mark.parametrize("tq, tk, kw, expected", [
     (512, 512, {}, 512),
     (2048, 2048, {}, 512),

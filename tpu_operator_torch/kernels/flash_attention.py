@@ -11,9 +11,11 @@
 - ``flash_block_update`` replaces ``_flash_block_kernel``
   (``tpu_operator/workloads/ring_attention.py:118-218``): one K/V block
   folded into the carried (m, l, o) state, in place.  bf16 q/k/v go to the
-  ``mma.sync`` entry here; f32 q/k/v, the transformer step's (its weights
-  are f32), to ``tpu_flash_block_update_f32`` in ``csrc/flash_backward.cu``
-  (3xTF32 ``mma.sync``: f32 products on the tensor cores).
+  ``mma.sync`` entry here, 16-row q tiles whose warps split the live keys
+  (the ring hop's 4 x 512 rows fill the card that way); f32 q/k/v, the
+  transformer step's (its weights are f32), to ``tpu_flash_block_update_f32``
+  in ``csrc/flash_backward.cu`` (3xTF32 ``mma.sync``: f32 products on the
+  tensor cores).
 
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.
@@ -49,6 +51,7 @@ MAX_HEAD_DIM = 128
 MMA_ROWS = 64             # query rows per block of the mma kernel
 SPLIT_TILE = 64           # keys per tile of the split kernel
 SPLIT_ROWS = 16           # query rows per block of the split kernel
+SPLIT_WARPS = 4           # warps per block of the split kernel, each its own key range
 MIN_SPLIT_TILES = 4       # tiles per split at least: one per warp of the block
 WGMMA_ROWS = 128          # query rows per block of the wgmma kernel
 WGMMA_HEAD_DIMS = (64, 128)
@@ -102,6 +105,18 @@ def _split_count(bh: int, tq: int, n_tiles: int, n_sm: int) -> int:
     live tiles; at least 1."""
     row_blocks = bh * -(-tq // SPLIT_ROWS)
     return max(1, min(-(-2 * n_sm // row_blocks), n_tiles // MIN_SPLIT_TILES))
+
+
+def _update_warp_ranges(tq: int, tk: int, causal: bool, q_off: int, k_off: int) -> list:
+    """The bf16 block update's cut of the keys: for each 16-row q tile (from row
+    ``q0``), its live 64-key tiles (``_live_keys`` of its rows) cut into one
+    contiguous range per warp by ``_split_ranges``.  Returns ``[(q0,
+    [(lo, hi)] * 4)]``; a q tile with no live tile has only empty ranges."""
+    out = []
+    for q0 in range(0, tq, SPLIT_ROWS):
+        live = _live_keys(min(SPLIT_ROWS, tq - q0), tk, causal, q_off + q0, k_off)
+        out.append((q0, _split_ranges(-(-live // SPLIT_TILE), SPLIT_WARPS)))
+    return out
 
 
 def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k_off: int,
@@ -228,6 +243,44 @@ def flash_attention_split_reference(q, k, v, causal, n_splits, q_off=0, k_off=0)
         parts.append(state)
     m, l, acc = (torch.stack(x) for x in zip(*parts))
     return merge_partials(m[..., 0], l[..., 0], acc, q.dtype)
+
+
+def flash_block_update_split_reference(q, k, v, q_off, k_off, m, l, o, causal):
+    """The plain mirror of the split update's fold order: per 16-row q tile,
+    each warp's range of live 64-key tiles (``_update_warp_ranges``) folded
+    tile by tile from a fresh state, then the carried state and the four
+    warps' merged as the kernel merges them: m* = max, l* = sum l exp(m -
+    m*), o* likewise, the carried state first.  A q tile with no live tile
+    keeps its state as it is.  Returns the new (m, l, o); the inputs are
+    left as they are.  For the tests: the CPU wrapper takes
+    ``flash_block_update_reference``."""
+    bh, tq, d = q.shape
+    tk = k.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    m_new, l_new, o_new = m.clone(), l.clone(), o.clone()
+    for q0, ranges in _update_warp_ranges(tq, tk, causal, q_off, k_off):
+        if all(lo == hi for lo, hi in ranges):
+            continue
+        rows = slice(q0, q0 + SPLIT_ROWS)
+        n = min(SPLIT_ROWS, tq - q0)
+        states = [(m[:, rows, None], l[:, rows, None], o[:, rows])]
+        for lo, hi in ranges:
+            state = (torch.full((bh, n, 1), NEG_INF, dtype=torch.float32, device=q.device),
+                     torch.zeros((bh, n, 1), dtype=torch.float32, device=q.device),
+                     torch.zeros((bh, n, d), dtype=torch.float32, device=q.device))
+            for t in range(lo, hi):
+                keys = slice(t * SPLIT_TILE, min((t + 1) * SPLIT_TILE, tk))
+                state = online_softmax_block_update(causal, scale, q[:, rows], k[:, keys],
+                                                    v[:, keys], *state, q_off + q0,
+                                                    k_off + t * SPLIT_TILE)
+            states.append(state)
+        ms, ls, accs = (torch.stack(x) for x in zip(*states))
+        m_star = ms.amax(dim=0)
+        f = torch.exp(ms - m_star)
+        m_new[:, rows] = m_star[..., 0]
+        l_new[:, rows] = (ls * f).sum(dim=0)[..., 0]
+        o_new[:, rows] = (accs * f).sum(dim=0)
+    return m_new, l_new, o_new
 
 
 def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal):
