@@ -4,9 +4,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths, the node readiness gate, the long-context
-attention checks, the post-ready perf probes and training, the way the
-validator runs them, and holds every kernel on those paths against its
-plain PyTorch version.  Phases, each fatal on failure:
+attention checks, the post-ready perf probes, training, the parallelism
+census and the multi-host program, the way the validator runs them, and
+holds every kernel on those paths against its plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
    name and power limit as nvidia-smi reports them
@@ -40,7 +40,20 @@ plain PyTorch version.  Phases, each fatal on failure:
    a finite loss, tokens/s > 0 and attention on ``cuda-flash-fwd-bwd``,
    and the launch counts of B3's f32 entry and of B4 above 0; prints every
    step time
-7. kernel    — each kernel against its plain version on the card: the add
+7. census    — ``run_validation.main()`` with ulysses, moe and pipeline at
+   the reference's shipping sizes under RESULTS_SCOPE=perf, as the
+   perf-probes pod runs them on every card of a node: exit 0, one JSON line
+   and one drop-box entry each, max_error under each module's own bound
+   (2e-2, 1e-4, 1e-3), ``devices`` the card count; prints each duration_s
+8. multihost — the multi-host program (``workloads/distributed.py``) through
+   ``spawn_local_workers_outcomes``: 2 hosts of half the cards each
+   (CUDA_VISIBLE_DEVICES) on 2 or more cards, else 1 host; every host rc 0
+   and ok, psum ok, ``visible_global`` and dp x mp the card count, losses
+   finite and falling; then, on 2 or more cards, FAULT_INJECT=psum:1 with
+   WATCHDOG_TIMEOUT_S=5: host 1 killed, every survivor failed by itself
+   within 90 s, host 0 ended by its watchdog (rc 3) naming member 1 (NCCL
+   hangs in the collective whose peer died, so only the watchdog ends it)
+9. kernel    — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -69,7 +82,7 @@ plain PyTorch version.  Phases, each fatal on failure:
    |kernel - plain| within 1e-4 of max |plain| in f32 and 1e-2 in bf16 (B4:
    this hop's contribution, on top of non-zero accumulators); every case
    launched twice on the same inputs, bit-identical
-8. timing    — CUDA-event medians of each kernel, its plain version and the
+10. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -115,6 +128,8 @@ ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
 ATTENTION_PATHS = ("wgmma", "split", None)  # B5's planned path in each check
 PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
 TRAIN_CHECKS = ("transformer", "train")
+CENSUS_BOUNDS = {"ulysses": 2e-2, "moe": 1e-4, "pipeline": 1e-3}  # each module's own
+MULTIHOST_BUDGET_S = 90    # a survivor of a dead host must fail by itself within it
 DMA_PROBE = ((131072, 512), 2048, 4)  # hbm-dma's shipping (shape, chunk_rows, slots): 256 MiB f32
 MAX_SHARE = 1.05           # of the memory rate: above it is L2 reuse or a mis-count
 PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
@@ -379,6 +394,83 @@ def training_phase(n_cards: int) -> tuple:
           f"the bf16 peak; the step is f32), launches on rank 0 {train['launches']}",
           flush=True)
     return forward, backward, train
+
+
+def census_phase(n_cards: int) -> dict:
+    """Run the parallelism census through the entry point, as the perf pod
+    runs it on every card of a node (RESULTS_SCOPE=perf); no kernel lies on
+    this path.  Returns the checks' lines."""
+    by, _ = run_checks(tuple(CENSUS_BOUNDS), n_cards, lambda: None, scope="perf")
+    for check, bound in CENSUS_BOUNDS.items():
+        r = by[check]
+        require(r["ok"] and r["max_error"] < bound,
+                f"{check} off by {r['max_error']} (bound {bound})")
+        require(r["devices"] == n_cards and r["backend"] == "cuda",
+                f"{check} ran on {r['devices']} {r['backend']} device(s)")
+    uly, ep, pp = by["ulysses"], by["moe"], by["pipeline"]
+    require((uly["seq_per_chip"], uly["head_dim"]) == (512, 128)
+            and ep["tokens"] == 1024 * n_cards and ep["experts"] == 2 * n_cards
+            and pp["microbatches"] == 16, "the census ran below its shipping sizes")
+    for check in CENSUS_BOUNDS:
+        r = by[check]
+        print(f"census: {check} duration_s {r['duration_s']!r} (time_s {r['time_s']!r}), "
+              f"max_error {r['max_error']!r} over {r['devices']} card(s)", flush=True)
+    return by
+
+
+def multihost_phase(n_cards: int) -> dict:
+    """Run the multi-host program as 2 hosts of half the cards each (1 host
+    on one card or an odd count), then, on 2 or more cards, kill host 1 at
+    the psum phase and require host 0's watchdog to end it.  Returns the
+    healthy run's durations."""
+    from tpu_operator_torch.workloads import distributed, watchdog
+
+    hosts = 2 if n_cards >= 2 and n_cards % 2 == 0 else 1
+    per = n_cards // hosts
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mh-") as root:
+        env = {"EXPECTED_DEVICES": str(per), "DEVICE_COUNT_GATE_BACKENDS": "cuda",
+               "TPU_VALIDATION_ROOT": root, "RESULTS_SCOPE": ""}
+        t0 = time.perf_counter()
+        outcomes = distributed.spawn_local_workers_outcomes(
+            hosts, per, steps=3, timeout=300, device="cuda", extra_env=env)
+        wall = time.perf_counter() - t0
+        for o in outcomes:
+            r = o["result"] or {}
+            print(f"multihost: host {o['process_id']} rc={o['returncode']} in "
+                  f"{o['elapsed_s']!r}s: {json.dumps(r)}", flush=True)
+            require(o["returncode"] == 0 and r.get("ok"),
+                    f"host {o['process_id']} failed: {o['stderr_tail'][-1500:]}")
+            require(r["psum"]["ok"], f"psum {r['psum']}")
+            require(r["devices_check"]["visible_global"] == n_cards,
+                    f"visible_global {r['devices_check']['visible_global']}")
+            require(r["mesh"]["dp"] * r["mesh"]["mp"] == n_cards, f"mesh {r['mesh']}")
+            losses = r["losses"]
+            require(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+                    f"losses {losses}")
+        print(f"multihost: {hosts} host(s) x {per} card(s) in {wall:.2f}s wall, "
+              f"host time_s {[o['result']['time_s'] for o in outcomes]}", flush=True)
+        if hosts < 2:
+            print("multihost: the fault run skipped: it needs 2 hosts, so 2 cards",
+                  flush=True)
+            return {"hosts": hosts, "wall_s": wall}
+        t0 = time.perf_counter()
+        outcomes = distributed.spawn_local_workers_outcomes(
+            hosts, per, steps=3, timeout=180, device="cuda",
+            extra_env={**env, "FAULT_INJECT": "psum:1", "WATCHDOG_TIMEOUT_S": "5"})
+        pm = distributed.rendezvous_post_mortem(outcomes)
+        print(f"multihost: fault psum:1 in {time.perf_counter() - t0:.2f}s: "
+              f"{json.dumps(pm)}", flush=True)
+        by_id = {w["process_id"]: w for w in pm["workers"]}
+        require(not pm["ok"] and 1 in pm["dead_members"], f"dead members {pm['dead_members']}")
+        require(pm["survivors_failed_bounded"]
+                and pm["max_survivor_elapsed_s"] < MULTIHOST_BUDGET_S,
+                f"survivors not bounded: {pm['workers']}")
+        require(by_id[1]["outcome"] == "killed", f"host 1 {by_id[1]}")
+        require(by_id[0]["outcome"] == "watchdog-peer-death"
+                and by_id[0]["returncode"] == watchdog.WATCHDOG_EXIT_CODE
+                and by_id[0]["dead_members"] == [1],
+                f"host 0 {by_id[0]}: {outcomes[0]['stderr_tail'][-1500:]}")
+    return {"hosts": hosts, "wall_s": wall}
 
 
 def kernel_phase() -> float:
@@ -1098,6 +1190,8 @@ def main() -> int:
     forward_launches, forward_paths, update_launches = attention_phase(count)
     dma_launches = probes_phase(count)
     train_fwd_launches, train_bwd_launches, _ = training_phase(count)
+    census_phase(count)
+    multihost_phase(count)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
     dma_err = dma_kernel_phase()

@@ -51,6 +51,8 @@ def test_port_imports_neither_jax_nor_the_reference():
     for module in ("workloads.run_validation", "workloads.collectives", "workloads._ranks",
                    "workloads.ring_attention", "workloads.longctx", "workloads.matmul_bench",
                    "workloads.hbm_bench", "workloads.hbm_dma", "workloads.train_bench",
+                   "workloads.moe", "workloads.ulysses", "workloads.pipeline",
+                   "workloads.watchdog", "workloads.distributed",
                    "kernels.vector_add", "kernels.flash_attention", "kernels.flash_backward",
                    "kernels.dma_pipeline", "kernels._build",
                    "k8s.nodeinfo", "obs.flight", "validator.status"):

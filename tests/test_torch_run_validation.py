@@ -125,7 +125,7 @@ def test_training_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["phase"] for s in samples if s["check"] == "train"} >= {"compile", "step", "result"}
 
 
-@pytest.mark.parametrize("check", ["ulysses", "serving"])
+@pytest.mark.parametrize("check", ["transformer-pp", "serving"])
 def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")
     assert rv.main() == 1
@@ -159,6 +159,31 @@ def test_perf_probes_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["check"] for s in samples} == {"matmul", "hbm", "hbm-dma", "ring"}
     assert {s["phase"] for s in samples if s["check"] == "matmul"} >= {"compile", "step",
                                                                        "result"}
+
+
+def test_parallelism_census_on_cpu(cpu_gate, monkeypatch, capsys):
+    """ulysses, moe and pipeline through the entry point under the
+    perf-probes pod's RESULTS_SCOPE, at their CPU sizes: one JSON line and
+    one drop-box entry each, with the reference's strategy tags and each
+    module's own bound (the reference's test_run_validation_parallelism_
+    census)."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "ulysses,moe,pipeline")
+    monkeypatch.setenv("RESULTS_SCOPE", "perf")
+    assert rv.main() == 0
+    lines = _lines(capsys)
+    assert [line["check"] for line in lines] == ["ulysses", "moe", "pipeline"]
+    assert all(line["ok"] and line["backend"] == "cpu" and line["devices"] == 1
+               for line in lines)
+    ulysses, moe, pipeline = lines
+    assert ulysses["strategy"] == "ulysses-all-to-all" and ulysses["max_error"] < 2e-2
+    assert moe["strategy"] == "ep-all-to-all-top1" and moe["max_error"] < 1e-4
+    assert pipeline["strategy"] == "pp-gpipe-microbatch" and pipeline["max_error"] < 1e-3
+    assert ulysses["seq"] == 16 and moe["tokens"] == 64 and pipeline["ticks"] == 8
+    results = jstatus.read_workload_results("perf")
+    assert set(results["checks"]) == {"ulysses", "moe", "pipeline"}
+    assert all(results["checks"][c]["duration_s"] > 0 for c in results["checks"])
+    samples = jstatus.read_flight_record("perf")
+    assert {s["check"] for s in samples} == {"ulysses", "moe", "pipeline"}
 
 
 def test_probe_gates_on_cpu_are_report_only(cpu_gate, monkeypatch, capsys):

@@ -3,8 +3,11 @@ readiness gate (the vector-add kernel check, the NCCL allreduce benchmark,
 the sharded burn-in), the long-context checks (longctx prefill, decode,
 ring attention) on the flash kernels, the post-ready perf probes (matmul
 MFU, the hbm stream, the hbm-dma cross-check on the DMA-pipeline kernel, the
-per-link ring), and training (the flagship transformer step, its
-throughput benchmark) on the ring-remat flash kernels.
+per-link ring), training (the flagship transformer step, its throughput
+benchmark) on the ring-remat flash kernels, and the parallelism census
+(ulysses, moe, pipeline).  ``python -m tpu_operator_torch.workloads.
+distributed`` is the multi-host program: one process per host, one rank
+per card, bounded by the peer watchdog.
 
 Device selection has no fallback: the gate runs on ``cuda`` unless the
 caller asks for the CPU (``TORCH_DEVICE=cpu``, the counterpart of the

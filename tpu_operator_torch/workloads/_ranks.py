@@ -18,7 +18,9 @@ NCCL on the cards, gloo on the CPU (where the tests run four ranks).
 ``rotate`` is the ring hop every ring uses (ring-attention's K/V rotation,
 the remat backward's K/V and dK/dV, the ring probe's payload): every rank
 sends to its successor and receives from its predecessor, in the default
-process group or in a subgroup (the transformer's mp ring).
+process group or in a subgroup (the transformer's mp ring).  ``all_to_all``
+is the exchange of Ulysses' re-sharding and of the MoE dispatch and
+return, differentiable.
 """
 
 from __future__ import annotations
@@ -59,6 +61,39 @@ def rotate(*blocks, group=None):
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return received
+
+
+class _AllToAll(torch.autograd.Function):
+    """``dist.all_to_all_single`` over the leading axis, differentiable: the
+    transpose of an all-to-all is the same all-to-all (slice i went to rank
+    i, so its cotangent comes back from rank i)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        import torch.distributed as dist
+
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _AllToAll.apply(grad)
+
+
+def all_to_all(x: torch.Tensor) -> torch.Tensor:
+    """The reference's untiled ``all_to_all`` (split and concat on axis 0)
+    of a ``[p, ...]`` block over the default process group: slice i goes to
+    rank i, and slice j of the result came from rank j.  Identity on one
+    rank (no process group); every rank calls it."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return x
+    if x.shape[0] != dist.get_world_size():
+        raise ValueError(f"all_to_all of {x.shape[0]} slices over {dist.get_world_size()} ranks")
+    return _AllToAll.apply(x)
 
 
 def _rank_main(fn, rank: int, world_size: int, device_type: str,

@@ -71,7 +71,9 @@ def device_count_check(
     must fail here with the counts, not pass every check on the survivors.
 
     Visible is ``torch.cuda.device_count()`` on a card and the rank count
-    (``world_size``, default 1) on the CPU.  Enforced only on backends named
+    (``world_size``, default 1) on the CPU; the global count is the
+    initialized process group's size (the multi-host program's world), else
+    the local count.  Enforced only on backends named
     in ``DEVICE_COUNT_GATE_BACKENDS`` (default cuda — the CPU rank count is a
     test-harness knob, not hardware truth); unenforced runs still report."""
     device = resolve_device(device)
@@ -79,9 +81,8 @@ def device_count_check(
         visible_local = torch.cuda.device_count()
     else:
         visible_local = world_size or 1
-    # one host per gate in this port: the multi-host gate brings its own
-    # global count
-    visible_global = visible_local
+    # every host's ranks when a rendezvous joined them; one host otherwise
+    visible_global = dist.get_world_size() if dist.is_initialized() else visible_local
     expected_global = expected_local * max(1, num_processes)
     backend = device.type
     gated = backend in timing.gate_backends("DEVICE_COUNT_GATE_BACKENDS")
@@ -496,11 +497,12 @@ def burn_in_params(mesh: Mesh, d_model: int = 512, d_hidden: int = 2048, seed: i
 
 
 class _RowParallelSum(torch.autograd.Function):
-    """Sum of the row-parallel partial outputs over mp.  The backward is the
-    identity: the reference's ``psum`` under ``shard_map`` turns the mp
-    partials into one value every shard holds, and its transpose hands that
-    value's cotangent to each partial unchanged (summing it again would
-    scale the gradient by mp)."""
+    """Sum of the row-parallel partial outputs over mp (and of the pipe's
+    stage outputs, ``pipeline.py``).  The backward is the identity: the
+    reference's ``psum`` under ``shard_map`` turns the partials into one
+    value every shard holds, and its transpose hands that value's cotangent
+    to each partial unchanged (summing it again would scale the gradient by
+    the group's size)."""
 
     @staticmethod
     def forward(ctx, y, group, size):

@@ -391,10 +391,15 @@ def acceptance(
     shape)."""
     device = resolve_device(device)
     n = world_size or (torch.cuda.device_count() if device.type == "cuda" else 1)
-    gen = torch.Generator().manual_seed(0)
-    shape = (batch, seq_per_chip * n, heads, head_dim)
-    q, k, v = (torch.randn(shape, generator=gen).bfloat16().float() for _ in range(3))
+    q, k, v = bf16_normals((batch, seq_per_chip * n, heads, head_dim))
     return _run(q, k, v, causal, use_kernel, n, device, tol)
+
+
+def bf16_normals(shape, seed: int = 0) -> tuple:
+    """The attention checks' host inputs: three standard-normal draws from
+    ``seed``, rounded to bf16, held in f32."""
+    gen = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen).bfloat16().float() for _ in range(3))
 
 
 def quick_check(device=None) -> dict:

@@ -14,7 +14,11 @@ Env (as the reference, plus ``TORCH_DEVICE``):
   ``hbm-dma`` (kernel B2, report-only) and ``ring`` (the per-link
   diagnostic), and training: ``transformer`` (the flagship layer's dp +
   ring-attention sp + Megatron-SP step, kernels B3 and B4 on a card) and
-  ``train`` (its tokens/s and MFU at the reference's full width on a card)
+  ``train`` (its tokens/s and MFU at the reference's full width on a card),
+  and the parallelism census the perf pod runs on a node of several cards:
+  ``ulysses`` (all-to-all sequence parallel attention), ``moe`` (expert
+  parallel, two all-to-alls) and ``pipeline`` (GPipe over a chain of
+  cards); not yet ported: ``transformer-pp``, ``warm-pool``, ``serving``
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
@@ -43,7 +47,7 @@ import time
 NOT_PORTED = "not yet ported to tpu_operator_torch"
 
 # the reference's checks this port does not run yet, in its dispatch order
-_UNPORTED = ("transformer-pp", "ulysses", "moe", "pipeline", "warm-pool", "serving")
+_UNPORTED = ("transformer-pp", "warm-pool", "serving")
 
 
 def _not_ported() -> dict:
@@ -145,6 +149,23 @@ def check_runners() -> dict:
             )
         return hd.quick_benchmark()
 
+    # the parallelism census: each module's acceptance over every card at
+    # the reference's shipping size (its CPU size on the CPU)
+    def ulysses():
+        from tpu_operator_torch.workloads import ulysses as uly
+
+        return uly.quick_check()
+
+    def moe():
+        from tpu_operator_torch.workloads import moe as ep
+
+        return ep.quick_check()
+
+    def pipeline():
+        from tpu_operator_torch.workloads import pipeline as pp
+
+        return pp.quick_check()
+
     return {
         "vector-add": collectives.vector_add,
         "allreduce": allreduce,
@@ -160,6 +181,9 @@ def check_runners() -> dict:
         "ring": ring,
         "hbm": hbm,
         "hbm-dma": hbm_dma,
+        "ulysses": ulysses,
+        "moe": moe,
+        "pipeline": pipeline,
         **{name: _not_ported for name in _UNPORTED},
     }
 
