@@ -5,7 +5,8 @@
 
 Drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
-census and the multi-host program, the way the validator runs them, and
+census, the multi-host program, the serving engine and the migratable
+training job, the way the validator and the migration drain run them, and
 holds every kernel on those paths against its plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
@@ -53,7 +54,24 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    WATCHDOG_TIMEOUT_S=5: host 1 killed, every survivor failed by itself
    within 90 s, host 0 ended by its watchdog (rc 3) naming member 1 (NCCL
    hangs in the collective whose peer died, so only the watchdog ends it)
-9. kernel    — each kernel against its plain version on the card: the add
+9. serving   — ``run_validation.main()`` with serving under RESULTS_SCOPE=perf:
+   exit 0, one JSON line, the drop-box, identical_outputs; then
+   quick_check's A/B (8 requests, 24 prompt and 12 new tokens, max_batch 8)
+   in the dense and the flash attend: identical outputs in each, every
+   stream the same in both, the flash run on B5's ``f32`` path only (its
+   launch count above 0, the bf16 paths' 0), the dense run on none; prints
+   each run's tokens_per_sec, speedup and tpot_p50_s; then the replica
+   ``python -m tpu_operator_torch.workloads.serving`` (6 s of service at 4
+   requests/s, 48-64 new tokens): the migrate signal written mid-run while
+   a batch is live, exit 0 after a checkpoint holding in-flight requests;
+   a second process restores them (``restored``, resumed_requests > 0) and
+   ends with an ok result
+10. migration — ``python -m tpu_operator_torch.workloads.checkpoint`` (20
+   steps, a snapshot every 5) at topology 1x1 on one card, 2x2 on 4 or
+   more; the migrate signal at step 10 or later; the restart at 1x1 (one
+   card visible) resumes from the signal's step with finite losses; on one
+   card its final weights are bit-identical to an uninterrupted run's
+11. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -81,8 +99,13 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    leave the accumulators or the state bit-identical: per output, max
    |kernel - plain| within 1e-4 of max |plain| in f32 and 1e-2 in bf16 (B4:
    this hop's contribution, on top of non-zero accumulators); every case
-   launched twice on the same inputs, bit-identical
-10. timing   — CUDA-event medians of each kernel, its plain version and the
+   launched twice on the same inputs, bit-identical; B5's f32 path at the
+   serving shapes (BH 2, an 8-row tail at q_off = length - 8 against 24, 40
+   and 136 keys padded to a 16-token page, D 8 and 16), ragged non-causal
+   Tq 136 x Tk 200 at D 64, rows that see no key and BH 1: out within 1e-4
+   of max |plain|, lse within 1e-5, blind rows exactly 0 and -1e30, each
+   case launched twice and bit-identical
+12. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -98,7 +121,10 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    hop (B4 f32 also at the fully visible hop), B4's library call the
    backward alone of ``scaled_dot_product_attention`` (its backend named);
    the f32 rows bound by 3xTF32 (three passes over the
-   TF32 peak), the CUDA-core bound beside it as ``bound_simt_ms``
+   TF32 peak), the CUDA-core bound beside it as ``bound_simt_ms``; B5's f32
+   path at (2, 8, 128, 16) causal, q_off 120, beside its plain version and
+   ``scaled_dot_product_attention`` on f32 with a boolean mask, bound by the
+   f32 CUDA-core peak
 
 Launch counts are set to 0 just before each main path runs and read just
 after it; the kernel and timing phases' launches are not counted.  Prints
@@ -130,6 +156,11 @@ PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
 TRAIN_CHECKS = ("transformer", "train")
 CENSUS_BOUNDS = {"ulysses": 2e-2, "moe": 1e-4, "pipeline": 1e-3}  # each module's own
 MULTIHOST_BUDGET_S = 90    # a survivor of a dead host must fail by itself within it
+SERVING_SHAPE = (2, 8, 128, 16)  # B5 f32 timing: heads, the 8-row tail, 128 keys, head dim
+REPLICA_ENV = {"TPU_SERVE_SECONDS": "6", "TPU_SERVE_RATE": "4",
+               # long answers keep requests in flight when the signal lands
+               "TPU_SERVE_NEW_TOKENS": "48,64"}
+MIGRATE_STEPS, MIGRATE_EVERY, MIGRATE_AT = 20, 5, 10  # the signal at step 10 or later
 DMA_PROBE = ((131072, 512), 2048, 4)  # hbm-dma's shipping (shape, chunk_rows, slots): 256 MiB f32
 MAX_SHARE = 1.05           # of the memory rate: above it is L2 reuse or a mis-count
 PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
@@ -473,6 +504,183 @@ def multihost_phase(n_cards: int) -> dict:
     return {"hosts": hosts, "wall_s": wall}
 
 
+def _stream_events(cmd: list, env: dict, on_event, timeout: float) -> tuple:
+    """Run ``cmd`` with ``env``, calling ``on_event`` on each JSON line of its
+    stdout as it comes; killed at ``timeout``.  Returns (rc, events, stderr
+    tail)."""
+    import threading
+
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    timer = threading.Timer(timeout, proc.kill)
+    timer.start()
+    err = []
+    reader = threading.Thread(target=lambda: err.extend(proc.stderr), daemon=True)
+    reader.start()
+    events = []
+    try:
+        for line in proc.stdout:
+            if line.startswith("{"):
+                event = json.loads(line)
+                events.append(event)
+                on_event(event)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(5.0)
+    return rc, events, "".join(err)[-3000:]
+
+
+def _subprocess_env(root: str, **extra) -> dict:
+    from tpu_operator_torch.workloads import subprocess_pythonpath
+
+    env = {k: v for k, v in os.environ.items() if k not in ("WORKLOAD_CHECKS", "RESULTS_SCOPE")}
+    env.update(PYTHONPATH=subprocess_pythonpath(), TPU_VALIDATION_ROOT=root, **extra)
+    return env
+
+
+def _signal(path: str) -> None:
+    from tpu_operator_torch import consts
+
+    with open(path, "w") as f:
+        f.write(f'{consts.MIGRATE_ANNOTATION}="{consts.MIGRATE_REQUESTED}"\n')
+
+
+def serving_phase(n_cards: int) -> dict:
+    """The serving check through the entry point (RESULTS_SCOPE=perf, as the
+    perf pod asks for it), quick_check's A/B in both attends on the card,
+    and the replica's migrate-and-restore round trip.  Returns the f32
+    forward's launches in the flash run and both runs' results."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.workloads import serving
+
+    def zero():
+        fa.forward_launches = 0
+        fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
+
+    zero()
+    by, paths = run_checks(("serving",), n_cards, lambda: dict(fa.forward_path_launches),
+                           scope="perf")
+    check = by["serving"]
+    require(check["ok"] and check["identical_outputs"] and check["backend"] == "cuda",
+            f"serving check: {check}")
+    runs, streams = {}, {}
+    for attend in ("dense", "flash"):
+        streams[attend] = {}
+        zero()
+        t0 = time.perf_counter()
+        r = serving.quick_check(attend=attend, streams=streams[attend])
+        seconds = time.perf_counter() - t0
+        r["paths"] = dict(fa.forward_path_launches)
+        runs[attend] = r
+        print(f"serving [{attend}]: identical_outputs {r['identical_outputs']}, tokens_per_sec "
+              f"sequential {r['sequential']['tokens_per_sec']!r} batched "
+              f"{r['batched']['tokens_per_sec']!r}, speedup {r['speedup']!r}, tpot_p50_s "
+              f"sequential {r['sequential']['tpot_p50_s']!r} batched "
+              f"{r['batched']['tpot_p50_s']!r}; forward launches by path {r['paths']} "
+              f"({seconds:.2f}s)", flush=True)
+        require(r["ok"] and r["identical_outputs"], f"serving [{attend}] changed outputs")
+    flash = runs["flash"]["paths"]
+    require(flash["f32"] > 0 and all(n == 0 for p, n in flash.items() if p != "f32"),
+            f"the flash attend launched {flash} (expected only the f32 path)")
+    require(all(n == 0 for n in runs["dense"]["paths"].values()), "the dense attend launched B5")
+    require(streams["dense"] == streams["flash"] and len(streams["flash"]) == 8,
+            "dense and flash attends gave different token streams")
+    replica_phase()
+    return {"f32_launches": flash["f32"], "runs": runs}
+
+
+def replica_phase() -> None:
+    """``python -m tpu_operator_torch.workloads.serving`` serves, takes the
+    migrate signal mid-run, checkpoints and exits 0; a second process
+    restores the in-flight requests and finishes the service."""
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-serve-") as root:
+        sig = os.path.join(root, "annotations")
+        env = _subprocess_env(root, TPU_CKPT_DIR=os.path.join(root, "ckpt"),
+                              TPU_MIGRATE_SIGNAL_FILE=sig, **REPLICA_ENV)
+        cmd = [sys.executable, "-m", "tpu_operator_torch.workloads.serving"]
+
+        def on_event(event):
+            if (event.get("event") == "serving" and event["batch"] > 0
+                    and event["elapsed_s"] >= 2 and not os.path.exists(sig)):
+                _signal(sig)
+
+        t0 = time.perf_counter()
+        rc, events, err = _stream_events(cmd, env, on_event, 180)
+        done = next((e for e in events if e.get("event") == "checkpointed"), None)
+        first = events[-1] if events else {}
+        print(f"replica: migrate run rc={rc} in {time.perf_counter() - t0:.2f}s; checkpointed "
+              f"{json.dumps(done)}; result {json.dumps(first)}", flush=True)
+        require(rc == 0 and done is not None and done["in_flight"] > 0
+                and first.get("event") == "result" and first["checkpointed"],
+                f"the replica did not checkpoint on the signal: {err}")
+        os.remove(sig)
+        t0 = time.perf_counter()
+        rc, events, err = _stream_events(cmd, env, lambda e: None, 180)
+        restored, final = (events[0], events[-1]) if events else ({}, {})
+        print(f"replica: restore run rc={rc} in {time.perf_counter() - t0:.2f}s; "
+              f"{json.dumps(restored)}; result {json.dumps(final)}", flush=True)
+        require(rc == 0 and restored.get("event") == "restored"
+                and restored["resumed_requests"] > 0, f"the replica did not restore: {err}")
+        require(final.get("event") == "result" and final["ok"] and final["resumed"]
+                and final["tokens_total"] >= first["tokens_total"],
+                f"the restored replica's result: {final}")
+
+
+def migration_phase(n_cards: int) -> dict:
+    """``python -m tpu_operator_torch.workloads.checkpoint`` (20 steps, a
+    snapshot every 5) at topology 1x1 on one card, 2x2 on 4 or more; the
+    migrate signal at step 10 or later; the restart at 1x1 (one card) resumes
+    from the signal's snapshot with finite losses, and on one card its final
+    weights are bit-identical to an uninterrupted 20-step run's."""
+    topology = "2x2" if n_cards >= 4 else "1x1"
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-migrate-") as root:
+        sig = os.path.join(root, "annotations")
+        cmd = [sys.executable, "-m", "tpu_operator_torch.workloads.checkpoint"]
+        base = dict(TRAIN_STEPS=str(MIGRATE_STEPS), TPU_CKPT_EVERY=str(MIGRATE_EVERY),
+                    TPU_MIGRATE_SIGNAL_FILE=sig)
+
+        def run(label, ckpt, topo, on_event=lambda e: None, **extra):
+            t0 = time.perf_counter()
+            rc, events, err = _stream_events(
+                cmd, _subprocess_env(root, TPU_CKPT_DIR=os.path.join(root, ckpt),
+                                     TPU_JOB_TOPOLOGY=topo, **base, **extra), on_event, 300)
+            result = events[-1] if events else {}
+            print(f"migration: {label} rc={rc} in {time.perf_counter() - t0:.2f}s: "
+                  f"{json.dumps(result)}", flush=True)
+            require(rc == 0 and result.get("event") == "result" and result["ok"]
+                    and result["backend"] == "cuda", f"{label} failed: {err}")
+            return result
+
+        def on_event(event):
+            if event.get("event") == "progress" and event["step"] >= MIGRATE_AT:
+                _signal(sig)
+
+        # a step slow enough that the signal lands before the run ends
+        first = run(f"{topology} with the signal", "ckpt", topology, on_event,
+                    TRAIN_STEP_SLEEP_S="0.2")
+        require(first["migrated_out"] and first["checkpointed_step"] == first["step"]
+                >= MIGRATE_AT and first["mesh"] == [int(x) for x in topology.split("x")],
+                f"the signal run: {first}")
+        os.remove(sig)
+        one = {"CUDA_VISIBLE_DEVICES": "0"} if n_cards > 1 else {}
+        resumed = run("restart at 1x1", "ckpt", "1x1", **one)
+        require(resumed["resumed_from_step"] == first["checkpointed_step"]
+                and resumed["step"] == MIGRATE_STEPS and resumed["losses_finite"]
+                and all(math.isfinite(v) for v in resumed["losses"]),
+                f"the restart: {resumed}")
+        if topology == "1x1":
+            whole = run("uninterrupted 1x1", "whole", "1x1")
+            require(whole["weights_sha256"] == resumed["weights_sha256"],
+                    "the resumed run's final weights differ from an uninterrupted run's")
+            print("migration: resumed final weights bit-identical to the uninterrupted run's",
+                  flush=True)
+    return {"signal_step": first["checkpointed_step"], "topology": topology}
+
+
 def kernel_phase() -> float:
     """Bit-for-bit parity of the vector add with its plain version, in f32,
     bf16 and f16 (compared as int32 or int16 views, tolerance 0)."""
@@ -669,6 +877,59 @@ def flash_kernel_phase() -> dict:
         worst["flash_block_update"] = max(worst["flash_block_update"], err)
     print(f"kernel flash_block_update: two launches bit-identical in all {twice} cases",
           flush=True)
+    return worst
+
+
+def f32_kernel_phase() -> float:
+    """Kernel B5's f32 path against its plain version on the card: the
+    serving shapes (BH 2, an 8-row tail at q_off = length - 8, keys padded
+    to a 16-token page, D 8 and 16), a ragged non-causal Tq 136 x Tk 200 at D
+    64, rows that see no key, BH 1; out within F32_RTOL of max |plain|, lse
+    within STATE_RTOL, rows that see no key exactly 0 and NEG_INF, each case
+    launched twice and bit-identical.  Returns the worst out error."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = [(f"serving length {n} D {d}", 2, 8, 16 * -(-n // 16), d, True, n - 8, 0)
+             for n in (24, 40, 136) for d in (8, 16)]
+    cases += [
+        # label, bh, tq, tk, d, causal, q_off, k_off
+        ("ragged Tq 136 x Tk 200 D 64 non-causal", 2, 136, 200, 64, False, 0, 0),
+        ("rows 0-3 see no key (k_off 4)", 2, 8, 64, 16, True, 0, 4),
+        ("every row masked", 2, 8, 64, 16, True, 0, 100),
+        ("BH 1", 1, 8, 48, 16, True, 40, 0),
+    ]
+    worst = 0.0
+    for label, bh, tq, tk, d, causal, q_off, k_off in cases:
+        q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda") for n in (tq, tk, tk))
+        require(fa._forward_plan(bh, tq, tk, d, causal, q_off, k_off, n_sm, q.dtype)[0] == "f32",
+                f"{label}: f32 inputs planned off the f32 path")
+        out, lse = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
+        again = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
+        torch.cuda.synchronize()
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"the f32 forward is not deterministic at {label}")
+        ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off, k_off)
+        blind = ~ref.any(dim=-1)  # rows that see no key
+        exact = (not out[blind].any()) and bool((lse[blind] == fa.NEG_INF).all())
+        require(exact, f"the f32 forward gave a row that sees no key a value at {label}")
+        if bool(blind.all()):
+            print(f"kernel flash_attention_local [f32] {label}: out all 0 and lse all NEG_INF",
+                  flush=True)
+            continue
+        seen = ~blind
+        err = _abs_err(out[seen], ref[seen])
+        scaled = err / float(ref.abs().max())
+        lse_err = _rel_err(lse[seen], ref_lse[seen])
+        print(f"kernel flash_attention_local [f32] {label}: out max_abs_err={err!r} "
+              f"(/max|plain| {scaled!r}) lse max_rel_err={lse_err!r}, {int(blind.sum())} "
+              f"blind rows exact, two launches bit-identical", flush=True)
+        require(scaled <= F32_RTOL and lse_err <= STATE_RTOL,
+                f"the f32 forward differs from its plain version at {label}")
+        worst = max(worst, err)
     return worst
 
 
@@ -1042,6 +1303,43 @@ def flash_timing_phase(name: str) -> dict:
     return rows
 
 
+def f32_timing_phase(name: str) -> dict:
+    """Kernel B5's f32 path at the serving engine's longest page, (2, 8,
+    128, 16) causal at q_off 120, beside its plain version and
+    ``scaled_dot_product_attention`` on f32 with an explicit boolean mask
+    (the nearest library call)."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    mem, _, f32_peak, _ = peaks(name)
+    bh, tq, tk, d = SERVING_SHAPE
+    q_off = tk - tq
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn((bh, n, d), generator=gen, device="cuda") for n in (tq, tk, tk))
+    # is_causal aligns top-left when Tq != Tk: the tail's mask is explicit
+    mask = torch.arange(tk, device="cuda")[None, :] <= (q_off + torch.arange(tq, device="cuda"))[:, None]
+    pairs = bh * sum(q_off + i + 1 for i in range(tq))
+    row = {
+        "shape": [bh, tq, tk, d], "causal": True, "q_off": q_off, "dtype": "float32",
+        "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True, q_off=q_off)),
+        "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True,
+                                                                       q_off=q_off)),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[None], k[None], v[None], attn_mask=mask)),
+        "library_note": "scaled_dot_product_attention, f32, explicit boolean mask",
+        # q, k, v read, out written, lse written (all f32); 4 D FLOP per
+        # unmasked (query, key) pair on the CUDA cores
+        **_bound(4.0 * d * pairs, 4 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq), (mem, f32_peak)),
+        "note": ("the bound is about ten nanoseconds, far below one launch (a few "
+                 "microseconds): at this shape every time here is launch latency"),
+    }
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(json.dumps({"timing": "flash_attention_local f32 (serving)", **row}), flush=True)
+    return row
+
+
 def dma_timing_phase(name: str) -> dict:
     """The DMA-pipeline kernel, its plain version and the library copy at
     the probe's shape, at 1 and 16 passes per launch."""
@@ -1192,8 +1490,11 @@ def main() -> int:
     train_fwd_launches, train_bwd_launches, _ = training_phase(count)
     census_phase(count)
     multihost_phase(count)
+    serving = serving_phase(count)
+    migration_phase(count)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
+    f32_err = f32_kernel_phase()
     dma_err = dma_kernel_phase()
     train_err = train_kernel_phase()
     vt = timing_phase(name)
@@ -1201,6 +1502,7 @@ def main() -> int:
     ft = flash_timing_phase(name)
     dt = dma_timing_phase(name)
     tt = train_timing_phase(name)
+    st = f32_timing_phase(name)
     source = "tpu_operator_torch/csrc/flash_attention.cu"
     train_source = "tpu_operator_torch/csrc/flash_backward.cu"
 
@@ -1284,6 +1586,17 @@ def main() -> int:
                    "float32 fully visible hop": entry(tt["backward_float32_visible"]),
                    "bfloat16": {**entry(tt["backward_bfloat16"]),
                                 "library_backend": tt["backward_bfloat16"]["library_backend"]}},
+    }, {
+        "name": "flash_attention_local_f32",
+        "route": "cuda",
+        "source": "tpu_operator_torch/csrc/flash_forward_f32.cu",
+        "replaces": "tpu_operator/workloads/longctx.py:47",
+        "launches": serving["f32_launches"],
+        "max_abs_err": f32_err,
+        **entry(st),
+        "shape": st["shape"],
+        "library_note": st["library_note"],
+        "note": st["note"],
     }]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall, the build included", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),

@@ -145,6 +145,19 @@ def test_forward_plan_picks_the_path(shape, path):
     assert fa._forward_plan(*shape, N_SM)[0] == path
 
 
+@pytest.mark.parametrize("shape", [
+    PREFILL, DECODE, (2, 8, 32, 16, True, 24, 0), (2, 8, 144, 8, True, 128, 0),
+    (2, 136, 200, 64, False, 0, 0), (8, 4096, 4096, 128, False, 0, 0),
+    (256, 8, 32768, 128, True, 32760, 0),
+], ids=lambda x: "x".join(map(str, x[:4])))
+def test_every_f32_call_plans_to_the_f32_path(shape):
+    """The serving engine's f32 pages, and any other f32 shape, go to the f32
+    kernel; the same shapes in bf16 keep their paths."""
+    assert fa._forward_plan(*shape, N_SM, torch.float32) == ("f32", 1)
+    assert fa._forward_plan(*shape, N_SM, torch.bfloat16)[0] != "f32"
+    assert fa._forward_plan(*shape, N_SM) == fa._forward_plan(*shape, N_SM, torch.bfloat16)
+
+
 def test_decode_plan_covers_the_card():
     bh = DECODE[0]
     path, n_splits = fa._forward_plan(*DECODE, N_SM)

@@ -147,13 +147,16 @@ def test_flash_cpu_tensors_take_the_plain_version():
 @pytest.mark.parametrize(
     "args, err",
     [
-        ((torch.ones(1, 8, 8), torch.ones(1, 8, 8), torch.ones(1, 8, 8)), TypeError),
+        # f32 q with bf16 k/v: the forward takes q, k, v all bf16 or all f32
+        ((torch.ones(1, 8, 8), torch.ones(1, 8, 8).bfloat16(), torch.ones(1, 8, 8).bfloat16()),
+         TypeError),
+        ((torch.ones(1, 8, 8).double(),) * 3, TypeError),
         ((torch.ones(1, 8, 8).bfloat16(), torch.ones(1, 8, 16).bfloat16(),
           torch.ones(1, 8, 16).bfloat16()), ValueError),
         ((torch.ones(8, 8).bfloat16(),) * 3, ValueError),
         ((torch.ones(1, 8, 8).bfloat16().transpose(1, 2),) * 3, ValueError),
     ],
-    ids=["f32", "head-dim", "rank", "non-contiguous"],
+    ids=["f32", "f64", "head-dim", "rank", "non-contiguous"],
 )
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(args, err):
     with pytest.raises(err):
@@ -247,6 +250,51 @@ def test_forward_plan_counts_its_path(cuda, bh, tq, tk, d, q_off, path):
     torch.cuda.synchronize()
     assert fa.forward_launches == total + 1
     assert fa.forward_path_launches == {**before, path: before[path] + 1}
+
+
+# kernel B5's f32 entry (the serving engine's flash attend): label, bh, tq,
+# tk, d, causal, q_off, k_off
+F32_FORWARD_CASES = [
+    *[(f"serving length {n} D {d}", 2, 8, 16 * -(-n // 16), d, True, n - 8, 0)
+      for n in (24, 40, 136) for d in (8, 16)],
+    ("ragged Tq 136 x Tk 200 D 64 non-causal", 2, 136, 200, 64, False, 0, 0),
+    ("Tq 40 x Tk 300 D 128 causal", 3, 40, 300, 128, True, 260, 0),
+    ("BH 1", 1, 8, 48, 16, True, 40, 0),
+    ("every row masked", 2, 8, 64, 16, True, 0, 100),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", F32_FORWARD_CASES, ids=[c[0] for c in F32_FORWARD_CASES])
+def test_flash_forward_f32_kernel_matches_plain(cuda, case):
+    """f32 q/k/v plan to the f32 path; the kernel is within F32_RTOL of the
+    plain version, masked rows exact, and two launches bit-identical."""
+    _, bh, tq, tk, d, causal, q_off, k_off = case
+    q, k, v = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=5))
+    before = dict(fa.forward_path_launches)
+    out, lse = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
+    again = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
+    torch.cuda.synchronize()
+    assert fa.forward_path_launches == {**before, "f32": before["f32"] + 2}
+    assert out.dtype == torch.float32
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off, k_off)
+    if not ref.any():
+        assert not out.any() and bool((lse == fa.NEG_INF).all())
+        return
+    assert _scaled(out, ref) <= F32_RTOL
+    assert _rel(lse, ref_lse) <= STATE_RTOL
+
+
+@pytest.mark.cuda
+def test_forward_f32_path_rejects_what_it_does_not_take(cuda):
+    q, k, v = (x.float() for x in _qkv(cuda, 2, 8, 64, 16))
+    with pytest.raises(TypeError):  # bf16 on the f32 path
+        fa._flash_forward_on("f32", *(x.bfloat16() for x in (q, k, v)))
+    with pytest.raises(TypeError):  # f32 on a bf16 path
+        fa._flash_forward_on("mma", q, k, v)
+    with pytest.raises(ValueError):  # D 12
+        fa._flash_forward_on("f32", *(x[..., :12].contiguous() for x in (q, k, v)))
 
 
 @pytest.mark.cuda

@@ -28,7 +28,7 @@ for name in names:
     importlib.import_module(name)
 runpy.run_path("chip_smoke.py", run_name="chip_smoke")  # its imports; main is guarded
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "tpu_operator"))
+                if m.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "tpu_operator"))
 print(",".join(names))
 print("LEAKED", leaked)
 """
@@ -53,6 +53,7 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "workloads.hbm_bench", "workloads.hbm_dma", "workloads.train_bench",
                    "workloads.moe", "workloads.ulysses", "workloads.pipeline",
                    "workloads.watchdog", "workloads.distributed",
+                   "workloads.serving", "workloads.checkpoint", "utils", "obs.profile",
                    "kernels.vector_add", "kernels.flash_attention", "kernels.flash_backward",
                    "kernels.dma_pipeline", "kernels._build",
                    "k8s.nodeinfo", "obs.flight", "validator.status"):
@@ -75,7 +76,7 @@ def test_no_source_imports_jax_or_the_reference():
     importing runs)."""
     import ast
 
-    banned = {"jax", "jaxlib", "tpu_operator"}
+    banned = {"jax", "jaxlib", "ml_dtypes", "tpu_operator"}
     found = []
     for path in _sources():
         with open(path) as f:

@@ -125,7 +125,7 @@ def test_training_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["phase"] for s in samples if s["check"] == "train"} >= {"compile", "step", "result"}
 
 
-@pytest.mark.parametrize("check", ["transformer-pp", "serving"])
+@pytest.mark.parametrize("check", ["transformer-pp", "warm-pool"])
 def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")
     assert rv.main() == 1
@@ -133,6 +133,27 @@ def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
     assert ok_line["ok"]
     assert failed["check"] == check and not failed["ok"]
     assert failed["error"] == rv.NOT_PORTED and "skipped" not in failed
+
+
+def test_only_two_checks_are_unported():
+    assert rv._UNPORTED == ("transformer-pp", "warm-pool")
+    assert set(rv.check_runners()) - set(rv._UNPORTED) == jrv.known_checks() - {
+        "transformer-pp", "warm-pool"}
+
+
+def test_serving_passes_on_cpu(cpu_gate, monkeypatch, capsys):
+    """The serving check under the perf pod's RESULTS_SCOPE: sequential and
+    batched scheduling give identical streams; the reference's reader finds
+    the entry in the scoped drop-box."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", "serving")
+    monkeypatch.setenv("RESULTS_SCOPE", "perf")
+    assert rv.main() == 0
+    (line,) = _lines(capsys)
+    assert line["check"] == "serving" and line["ok"] and line["identical_outputs"]
+    assert line["backend"] == "cpu" and line["batched"]["completed"] == line["n_requests"] == 8
+    assert line["sequential"]["steps"] > line["batched"]["steps"]
+    results = jstatus.read_workload_results("perf")
+    assert results["checks"]["serving"]["identical_outputs"] is True
 
 
 def test_perf_probes_pass_on_cpu(cpu_gate, monkeypatch, capsys):

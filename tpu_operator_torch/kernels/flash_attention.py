@@ -21,8 +21,8 @@
 under the same names, the reference's.
 
 Both run ``online_softmax_block_update`` (``ring_attention.py:86-115``),
-whose plain version is here too.  Layout ``[BH, T, D]``; q, k, v bf16 (or
-f32 for the block update), the state f32.  A wrapper takes the plain version
+whose plain version is here too.  Layout ``[BH, T, D]``; q, k, v bf16 or
+f32, the state f32.  A wrapper takes the plain version
 for tensors on the CPU and launches its kernel for tensors on a card.
 """
 
@@ -41,7 +41,7 @@ NEG_INF = -1e30  # large-negative instead of -inf: exp() of a fully masked
 # launches of each CUDA kernel in this process: a run shows it went through
 # the kernel by reading these before and after (chip_smoke.py sets them to 0)
 forward_launches = 0           # every path of the forward
-forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0}
+forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0}
 block_update_launches = 0      # the bf16 entry
 block_update_f32_launches = 0  # the f32 entry
 
@@ -55,6 +55,7 @@ SPLIT_WARPS = 4           # warps per block of the split kernel, each its own ke
 MIN_SPLIT_TILES = 4       # tiles per split at least: one per warp of the block
 WGMMA_ROWS = 128          # query rows per block of the wgmma kernel
 WGMMA_HEAD_DIMS = (64, 128)
+FORWARD_DTYPES = (torch.bfloat16, torch.float32)  # f32: the serving engine's
 
 
 def _block_div(t: int, want: int) -> int:
@@ -120,9 +121,12 @@ def _update_warp_ranges(tq: int, tk: int, causal: bool, q_off: int, k_off: int) 
 
 
 def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k_off: int,
-                  n_sm: int) -> tuple:
+                  n_sm: int, dtype=torch.bfloat16) -> tuple:
     """Which kernel runs a forward call, and over how many key ranges:
     ``(path, n_splits)``.
+
+    Every f32 call (``dtype``) takes ``f32``: the serving engine's pages.
+    A bf16 call takes:
 
     - ``split`` when the query side is a short tail (``tq <= SPLIT_ROWS``),
       the mma kernel's ``bh * ceil(tq / 64)`` blocks cannot fill the
@@ -132,9 +136,10 @@ def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k
       so every split keeps ``MIN_SPLIT_TILES`` tiles (one per warp).
     - ``wgmma`` when D is 64 or 128 and Tq fills at least one 128-row q
       tile: the prefill.
-    - ``mma`` for everything else: the serving pages at D 8 and 16, D 32,
-      short sequences.
-    ``n_splits`` is 1 on the two paths that do not split."""
+    - ``mma`` for everything else: D 8 to 32, short sequences.
+    ``n_splits`` is 1 on the paths that do not split."""
+    if dtype == torch.float32:
+        return "f32", 1
     n_tiles = -(-_live_keys(tq, tk, causal, q_off, k_off) // SPLIT_TILE)
     blocks = bh * -(-tq // MMA_ROWS)
     if tq <= SPLIT_ROWS and blocks < n_sm and n_tiles >= 2 * MIN_SPLIT_TILES:
@@ -343,6 +348,7 @@ _ENTRIES = {  # source -> {entry: argtypes}
         "tpu_flash_block_update_bf16": _UPDATE_ARGS,
     },
     "flash_forward_sm90": {"tpu_flash_forward_wgmma_bf16": _FORWARD_ARGS},
+    "flash_forward_f32": {"tpu_flash_forward_f32": _FORWARD_ARGS},
     "flash_backward": {"tpu_flash_block_update_f32": _UPDATE_ARGS},
 }
 
@@ -376,31 +382,32 @@ def _on_card(q: torch.Tensor) -> bool:
 
 
 def flash_attention_local(q, k, v, causal=True, block_k=1024, block_q=1024, q_off=0, k_off=0):
-    """Flash attention in the merged layout ``[BH, T, D]`` (kernel B5).
-    Returns (out [BH, Tq, D] in q's dtype, lse [BH, Tq] f32).
+    """Flash attention in the merged layout ``[BH, T, D]`` (kernel B5), q/k/v
+    all bf16 or all f32.  Returns (out [BH, Tq, D] in q's dtype, lse [BH, Tq]
+    f32).
     ``q_off``/``k_off``: global sequence offsets (causal positions are
     ``q_off + row`` and ``k_off + col``).  On a card the kernel that
     ``_forward_plan`` picks for the call (launched on the current stream,
     not synchronized), which picks its own tiles; ``block_q``/``block_k``
     are kept for parity with the reference and honoured by the plain
     version (``_block_div``), which tensors on the CPU take."""
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, dtypes=FORWARD_DTYPES)
     if not _on_card(q):
         return flash_attention_local_reference(q, k, v, causal, block_k, block_q, q_off, k_off)
     _check_device(q, k, v)
     bh, tq, d = q.shape
     path, n_splits = _forward_plan(bh, tq, k.shape[1], d, causal, q_off, k_off,
-                                   _sm_count(q.device))
+                                   _sm_count(q.device), q.dtype)
     return _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits)
 
 
 def _flash_forward_on(path, q, k, v, causal=True, q_off=0, k_off=0, n_splits=None):
-    """Run the forward on the named ``path`` (``wgmma``, ``split`` or
-    ``mma``) at any shape that path takes, whatever the plan would pick:
-    for holding each kernel against the plain version and timing one
-    against another on the card.  ``n_splits`` defaults to the plan's
+    """Run the forward on the named ``path`` (``wgmma``, ``split``, ``mma``
+    or, for f32 q/k/v, ``f32``) at any shape that path takes, whatever the
+    plan would pick: for holding each kernel against the plain version and
+    timing one against another on the card.  ``n_splits`` defaults to the plan's
     sizing (``_split_count``).  The main path never calls it."""
-    _check_qkv(q, k, v)
+    _check_qkv(q, k, v, dtypes=(torch.float32,) if path == "f32" else (torch.bfloat16,))
     if not _on_card(q):
         raise ValueError("_flash_forward_on launches a kernel: give it tensors on a card")
     _check_device(q, k, v)
@@ -426,7 +433,9 @@ def _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits):
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
-        if path == "wgmma":
+        if path == "f32":
+            rc = _bind("flash_forward_f32").tpu_flash_forward_f32(*ptrs, *common, stream)
+        elif path == "wgmma":
             rc = _bind("flash_forward_sm90").tpu_flash_forward_wgmma_bf16(*ptrs, *common, stream)
         elif path == "split":
             # one partial (m, l, acc[D]) per (split, bh, row), f32

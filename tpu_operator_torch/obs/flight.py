@@ -50,6 +50,26 @@ COUNTER_KEYS = {
     "compile_s": "tpu_workload_compile_seconds",
     "gbps": "tpu_workload_achieved_gbps",
     "overhead_dominated": "tpu_workload_overhead_dominated",
+    # sustained-serving telemetry (workloads/serving.py
+    # ServingEngine.telemetry): per-step rolling rollups, every key
+    # serve_-prefixed (this map is global across workloads)
+    "serve_tokens_per_sec": "tpu_workload_serving_tokens_per_sec",
+    "serve_ttft_p99_s": "tpu_workload_serving_ttft_p99_seconds",
+    "serve_tpot_p99_s": "tpu_workload_serving_tpot_p99_seconds",
+    "serve_queue_depth": "tpu_workload_serving_queue_depth",
+    "serve_batch_size": "tpu_workload_serving_batch_size",
+    "serve_kv_blocks_free": "tpu_workload_serving_kv_blocks_free",
+    "serve_requests_completed": "tpu_workload_serving_requests_completed_total",
+    "serve_requests_rejected": "tpu_workload_serving_requests_rejected_total",
+    "serve_decoded_tokens": "tpu_workload_serving_decoded_tokens_total",
+    # chip-time accounting evidence (workloads/checkpoint.py training loop
+    # and restore path); acct_* are cumulative seconds per process
+    "checkpoint_s": "tpu_workload_checkpoint_seconds",
+    "restore_s": "tpu_workload_restore_seconds",
+    "acct_useful_s": "tpu_workload_useful_seconds_total",
+    "acct_wasted_s": "tpu_workload_wasted_seconds_total",
+    "replayed_steps": "tpu_workload_replayed_steps_total",
+    "lost_steps": "tpu_workload_lost_steps_total",
 }
 
 # result keys of the ported checks worth a summary sample (record_result),

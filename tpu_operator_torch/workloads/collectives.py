@@ -436,12 +436,15 @@ class Mesh:
         return {"dp": self.dp, "mp": self.mp}
 
 
-def make_mesh(world_size: int = 1, rank: int = 0, device=None) -> Mesh:
-    """2-D (dp, mp) mesh over ``world_size`` ranks.  Above one rank it must
-    run inside an initialized process group of that size, on every rank
-    (``new_group`` is collective)."""
+def make_mesh(world_size: int = 1, rank: int = 0, device=None, shape=None) -> Mesh:
+    """2-D (dp, mp) mesh over ``world_size`` ranks, of ``shape`` (dp, mp)
+    when given, else ``_split_dp_mp``'s.  Above one rank it must run inside
+    an initialized process group of that size, on every rank (``new_group``
+    is collective)."""
     device = resolve_device(device)
-    dp, mp = _split_dp_mp(world_size)
+    dp, mp = shape or _split_dp_mp(world_size)
+    if dp * mp != world_size:
+        raise ValueError(f"mesh {dp}x{mp} over {world_size} ranks")
     mesh = Mesh(dp, mp, rank, device)
     if world_size == 1:
         return mesh

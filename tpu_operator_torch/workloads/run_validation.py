@@ -18,7 +18,9 @@ Env (as the reference, plus ``TORCH_DEVICE``):
   and the parallelism census the perf pod runs on a node of several cards:
   ``ulysses`` (all-to-all sequence parallel attention), ``moe`` (expert
   parallel, two all-to-alls) and ``pipeline`` (GPipe over a chain of
-  cards); not yet ported: ``transformer-pp``, ``warm-pool``, ``serving``
+  cards), and ``serving`` (the continuous-batching engine over the paged KV
+  cache: sequential vs batched scheduling, identical outputs); not yet
+  ported: ``transformer-pp``, ``warm-pool``
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
@@ -47,7 +49,7 @@ import time
 NOT_PORTED = "not yet ported to tpu_operator_torch"
 
 # the reference's checks this port does not run yet, in its dispatch order
-_UNPORTED = ("transformer-pp", "warm-pool", "serving")
+_UNPORTED = ("transformer-pp", "warm-pool")
 
 
 def _not_ported() -> dict:
@@ -166,6 +168,14 @@ def check_runners() -> dict:
 
         return pp.quick_check()
 
+    def serving():
+        # continuous-batching serving engine over the paged KV cache: a
+        # small closed-loop A/B; batching must keep every request's tokens
+        # identical to sequential scheduling
+        from tpu_operator_torch.workloads import serving as srv
+
+        return srv.quick_check()
+
     return {
         "vector-add": collectives.vector_add,
         "allreduce": allreduce,
@@ -184,6 +194,7 @@ def check_runners() -> dict:
         "ulysses": ulysses,
         "moe": moe,
         "pipeline": pipeline,
+        "serving": serving,
         **{name: _not_ported for name in _UNPORTED},
     }
 
