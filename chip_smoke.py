@@ -5,9 +5,10 @@
 
 Drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
-census, the multi-host program, the serving engine and the migratable
-training job, the way the validator and the migration drain run them, and
-holds every kernel on those paths against its plain PyTorch version.  Phases, each fatal on failure:
+census, the multi-host program, the serving engine, the migratable
+training job and the warm pool of kernel libraries, the way the validator
+and the migration drain run them, and holds every kernel on those paths
+against its plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
    name and power limit as nvidia-smi reports them
@@ -34,13 +35,18 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    0 < share of the memory rate <= 1.05 (above that is L2 reuse or a
    mis-count, not a fast card), ring max_error exactly 0
 6. training  — ``run_validation.main()`` with transformer (3 steps, head dim
-   32, 16 tokens per card) and train (the reference's full width: batch 4,
+   32, 16 tokens per card), train (the reference's full width: batch 4,
    2048 tokens, d_model 4096, d_hidden 16384, 32 heads, per card; 4 steps
-   x (first use + best of 3)): exit 0, one JSON line per check, the
-   drop-box, transformer losses finite and strictly falling, train ok with
-   a finite loss, tokens/s > 0 and attention on ``cuda-flash-fwd-bwd``,
-   and the launch counts of B3's f32 entry and of B4 above 0; prints every
-   step time
+   x (first use + best of 3)) and transformer-pp (the GPipe stack over the
+   (pp, dp, mp) mesh at the reference's sizes: 4 microbatches of 2
+   sequences, 16 tokens per card, d_model 64, 4 heads of 16; 3 steps):
+   exit 0, one JSON line per check, the drop-box, transformer and
+   transformer-pp losses finite and strictly falling, train ok with a
+   finite loss, tokens/s > 0, attention on ``cuda-flash-fwd-bwd`` in all
+   three, transformer-pp's own launches of B3's f32 entry and of B4 above
+   0 and ``pp_degenerate`` below 4 cards, and the launch counts above 0;
+   on 4 or more cards transformer-pp's first loss within 1e-3 relative of
+   the same run on as many gloo ranks on the host; prints every step time
 7. census    — ``run_validation.main()`` with ulysses, moe and pipeline at
    the reference's shipping sizes under RESULTS_SCOPE=perf, as the
    perf-probes pod runs them on every card of a node: exit 0, one JSON line
@@ -71,7 +77,16 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    more; the migrate signal at step 10 or later; the restart at 1x1 (one
    card visible) resumes from the signal's step with finite losses; on one
    card its final weights are bit-identical to an uninterrupted run's
-11. kernel   — each kernel against its plain version on the card: the add
+11. warm-pool — ``python -m tpu_operator_torch.workloads.run_validation``
+   with warm-pool, twice, each in a fresh process on a fresh copy of the
+   package with no ``_build/``, sharing one TPU_COMPILE_CACHE_ARTIFACTS:
+   the cold run builds every library (misses = sources, hits 0, compile_s
+   > 0), the warm one installs them from the store without nvcc (hits =
+   sources, misses 0, compile_s 0, fetch_s under a tenth of the cold
+   compile_s); in both the build dir holds every library and vector-add
+   ran on B1, equal to its plain version; prints both runs and the
+   libraries' sizes
+12. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -94,7 +109,8 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    and fewer tiles than SMs, and the wrapper's alignment rejections; B4
    (f32 and bf16) and B3's f32 entry at the train hop
    (128, 2048, 128) causal, a fully visible hop at its width (q_off 2048),
-   the transformer check's (16, 16, 32), ragged shapes, head dims 40 and 72,
+   the transformer check's (16, 16, 32), a transformer-pp stage's
+   (8, 16, 16) diagonal and fully visible, ragged shapes, head dims 40 and 72,
    Tq and Tk off the 64 grid at D 128, and a fully masked block, which must
    leave the accumulators or the state bit-identical: per output, max
    |kernel - plain| within 1e-4 of max |plain| in f32 and 1e-2 in bf16 (B4:
@@ -105,7 +121,7 @@ holds every kernel on those paths against its plain PyTorch version.  Phases, ea
    Tq 136 x Tk 200 at D 64, rows that see no key and BH 1: out within 1e-4
    of max |plain|, lse within 1e-5, blind rows exactly 0 and -1e30, each
    case launched twice and bit-identical
-12. timing   — CUDA-event medians of each kernel, its plain version and the
+13. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -153,7 +169,7 @@ GATE_CHECKS = ("vector-add", "allreduce", "burn-in")
 ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
 ATTENTION_PATHS = ("wgmma", "split", None)  # B5's planned path in each check
 PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
-TRAIN_CHECKS = ("transformer", "train")
+TRAIN_CHECKS = ("transformer", "train", "transformer-pp")
 CENSUS_BOUNDS = {"ulysses": 2e-2, "moe": 1e-4, "pipeline": 1e-3}  # each module's own
 MULTIHOST_BUDGET_S = 90    # a survivor of a dead host must fail by itself within it
 SERVING_SHAPE = (2, 8, 128, 16)  # B5 f32 timing: heads, the 8-row tail, 128 keys, head dim
@@ -168,6 +184,8 @@ DECODE_TAIL = 8            # decode's query rows at the end of the cache
 RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
 TRAIN_HOP = (128, 2048, 128)      # train's hop per card: batch 4 x 32 heads, 2048 tokens
 TRANSFORMER_HOP = (16, 16, 32)    # the transformer check's: batch 4 x 4 heads, 16 tokens
+STAGE_HOP = (8, 16, 16)           # a transformer-pp stage's: batch 2 x 4 heads, 16 tokens, D 16
+PP_LOSS_RTOL = 1e-3               # transformer-pp's first loss on the cards vs gloo ranks
 TRAIN_WIDTH = (4096, 16384)       # train's d_model, d_hidden: the reference's TPU shapes
 OUT_TOL = 2e-2             # the checks' max_error: bf16 output, the reference's bound
 KERNEL_OUT_RTOL = 1e-2     # kernel vs plain: max|out - plain| / max|plain|, per case
@@ -206,8 +224,9 @@ def device_phase():
 
 def build_phase() -> None:
     from tpu_operator_torch.kernels import _build
+    from tpu_operator_torch.workloads import warmpool
 
-    sources = sorted(f[:-3] for f in os.listdir(_build.CSRC_DIR) if f.endswith(".cu"))
+    sources = warmpool.libraries()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
         built = dict(zip(sources, pool.map(_build.build, sources)))
@@ -388,8 +407,10 @@ def probes_phase(n_cards: int) -> int:
 
 
 def training_phase(n_cards: int) -> tuple:
-    """Run transformer and train through the entry point; returns the
-    launches of B3's f32 entry and of B4, and train's result."""
+    """Run transformer, train and transformer-pp through the entry point;
+    returns the launches of B3's f32 entry and of B4, and train's result.
+    On 4 or more cards transformer-pp's first loss is held against the same
+    run on as many gloo ranks on the host (the plain path)."""
     from tpu_operator_torch.kernels import flash_attention as fa
     from tpu_operator_torch.kernels import flash_backward as fb
 
@@ -397,10 +418,10 @@ def training_phase(n_cards: int) -> tuple:
     fb.backward_launches = 0
     by, (forward, backward) = run_checks(
         TRAIN_CHECKS, n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches))
-    tr, train = by["transformer"], by["train"]
+    tr, train, pp = by["transformer"], by["train"], by["transformer-pp"]
     if n_cards > 1:
         # the checks ran in one process per card: rank 0 counted its own
-        for r in (tr, train):
+        for r in (tr, train, pp):
             forward += r["launches"]["flash_block_update_f32"]
             backward += r["launches"]["flash_block_backward"]
     require(forward > 0, "training ran without launching the f32 flash block update kernel")
@@ -424,7 +445,43 @@ def training_phase(n_cards: int) -> tuple:
           f"{train['model_tflops']!r} model TFLOP/s, MFU {train.get('train_mfu')!r} (against "
           f"the bf16 peak; the step is f32), launches on rank 0 {train['launches']}",
           flush=True)
+    check_pp(pp, n_cards)
     return forward, backward, train
+
+
+def check_pp(pp: dict, n_cards: int) -> None:
+    """transformer-pp's line: three finite, strictly falling losses, its
+    own launches of B3 f32 and B4 above 0, ``pp_degenerate`` exactly below
+    4 cards; on 4 or more cards its first loss within 1e-3 relative of the
+    same run on as many gloo ranks on the host (the plain path, the same
+    weights).  On four cards alone: ``python -c "import chip_smoke as c;
+    n = c.device_phase()[1]; c.build_phase(); c.check_pp(c.run_checks(
+    ('transformer-pp',), n, lambda: None)[0]['transformer-pp'], n)"``."""
+    from tpu_operator_torch.workloads import collectives
+
+    losses = pp["losses"]
+    require(len(losses) == 3 and all(math.isfinite(v) for v in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"transformer-pp losses {losses}")
+    require(pp["attention_kernel"] == "cuda-flash-fwd-bwd"
+            and all(n > 0 for n in pp["launches"].values()),
+            f"transformer-pp on {pp['attention_kernel']}, launched {pp['launches']} in rank "
+            f"0's process")
+    require(pp.get("pp_degenerate", False) == (n_cards < 4) and pp["devices"] == n_cards,
+            f"transformer-pp on mesh {pp['mesh']}, pp_degenerate {pp.get('pp_degenerate')}")
+    print(f"transformer-pp: mesh {pp['mesh']}, losses {losses}, step times (s) "
+          f"{pp['step_s']}, duration_s {pp['duration_s']!r}, launches on rank 0 "
+          f"{pp['launches']}", flush=True)
+    if n_cards < 4:
+        return
+    t0 = time.perf_counter()
+    gloo = collectives.transformer_pipeline_burn_in(world_size=n_cards, device="cpu")
+    rel = abs(losses[0] - gloo["losses"][0]) / abs(gloo["losses"][0])
+    print(f"transformer-pp: first loss {losses[0]!r} on {n_cards} cards vs "
+          f"{gloo['losses'][0]!r} on {n_cards} gloo ranks, mesh {gloo['mesh']} (rel "
+          f"{rel:.2e}, tol {PP_LOSS_RTOL}; {time.perf_counter() - t0:.2f}s)", flush=True)
+    require(gloo["mesh"] == pp["mesh"] and rel <= PP_LOSS_RTOL,
+            "transformer-pp's first loss on the cards disagrees with the gloo run's")
 
 
 def census_phase(n_cards: int) -> dict:
@@ -679,6 +736,70 @@ def migration_phase(n_cards: int) -> dict:
             print("migration: resumed final weights bit-identical to the uninterrupted run's",
                   flush=True)
     return {"signal_step": first["checkpointed_step"], "topology": topology}
+
+
+def warmpool_phase(n_cards: int) -> dict:
+    """The warm-pool check through ``python -m tpu_operator_torch.workloads.
+    run_validation``, twice, each in a fresh process on a fresh copy of the
+    package with no ``_build/``, the two sharing one artifact store: the
+    cold run builds every library (misses = libraries, hits 0, compile_s >
+    0), the warm one installs them from the store without nvcc (hits =
+    libraries, misses 0, compile_s 0, fetch_s far below the cold build);
+    both run vector-add on B1 equal to its plain version.  Returns both
+    results and B1's launches in them."""
+    import shutil
+
+    from tpu_operator_torch.kernels import _build
+    from tpu_operator_torch.workloads import warmpool
+
+    n_libs = len(warmpool.libraries())
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-warm-") as root:
+        for label in ("cold", "warm"):
+            tree = os.path.join(root, label)
+            shutil.copytree(os.path.dirname(_build.CSRC_DIR),
+                            os.path.join(tree, "tpu_operator_torch"),
+                            ignore=shutil.ignore_patterns("_build", "__pycache__"))
+            env = _subprocess_env(os.path.join(root, f"{label}-validation"))
+            env.update(PYTHONPATH=tree, WORKLOAD_CHECKS="warm-pool",
+                       EXPECTED_DEVICES=str(n_cards), DEVICE_COUNT_GATE_BACKENDS="cuda",
+                       TPU_COMPILE_CACHE_ARTIFACTS=os.path.join(root, "artifacts"))
+            env.pop("TPU_FLEET_CACHE_URL", None)
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "tpu_operator_torch.workloads.run_validation"],
+                cwd=tree, env=env, capture_output=True, text=True, timeout=600)
+            wall = time.perf_counter() - t0
+            lines = {line["check"]: line for line in map(json.loads, (
+                x for x in proc.stdout.splitlines() if x.startswith("{")))}
+            r = lines.get("warm-pool", {})
+            print(f"warm-pool [{label}]: rc={proc.returncode} in {wall:.2f}s wall: "
+                  f"{json.dumps(r)}", flush=True)
+            require(proc.returncode == 0 and r.get("ok") and r["backend"] == "cuda",
+                    f"warm-pool [{label}] failed: {proc.stderr[-3000:]}")
+            built = sorted(f for f in os.listdir(os.path.join(tree, "tpu_operator_torch",
+                                                             "_build")) if f.endswith(".so"))
+            require(len(built) == n_libs and set(r["libraries"]) == set(warmpool.libraries()),
+                    f"warm-pool [{label}] left {built} in its build dir")
+            va = r["results"]["vector-add"]
+            require(va["finite"] and va["value"] == va["plain_value"]
+                    and r["launches"]["vector_add"] > 0,
+                    f"warm-pool [{label}] vector-add {va}, launches {r['launches']}")
+            r["wall_s"] = wall
+            runs[label] = r
+    cold, warm = runs["cold"], runs["warm"]
+    require((cold["misses"], cold["hits"]) == (n_libs, 0) and cold["compile_s"] > 0,
+            f"the cold run: misses {cold['misses']}, hits {cold['hits']}")
+    require((warm["hits"], warm["misses"], warm["corrupt"]) == (n_libs, 0, 0)
+            and warm["compile_s"] == 0 and warm["fetch_s"] < 0.1 * cold["compile_s"],
+            f"the warm run: hits {warm['hits']}, misses {warm['misses']}, compile_s "
+            f"{warm['compile_s']}, fetch_s {warm['fetch_s']}")
+    sizes = {name: lib["bytes"] for name, lib in warm["libraries"].items()}
+    print(f"warm-pool: cold {cold['duration_s']!r} s (compile_s {cold['compile_s']!r}, the "
+          f"libraries' build seconds summed; {cold['wall_s']:.2f}s process wall), warm "
+          f"{warm['duration_s']!r} s (fetch_s {warm['fetch_s']!r}; {warm['wall_s']:.2f}s "
+          f"process wall); library bytes {sizes} ({sum(sizes.values())} in all)", flush=True)
+    return {"runs": runs, "launches": sum(r["launches"]["vector_add"] for r in runs.values())}
 
 
 def kernel_phase() -> float:
@@ -965,12 +1086,14 @@ def train_kernel_phase() -> dict:
     from tpu_operator_torch.kernels import flash_backward as fb
 
     gen = torch.Generator(device="cuda").manual_seed(6)
-    (bh, t, d), (tb, tt, td) = TRAIN_HOP, TRANSFORMER_HOP
+    (bh, t, d), (tb, tt, td), (sb, st, sd) = TRAIN_HOP, TRANSFORMER_HOP, STAGE_HOP
     cases = [
         # label, bh, tq, tk, d, q_off, k_off, causal
         (f"train hop {TRAIN_HOP} causal", bh, t, t, d, 0, 0, True),
         (f"fully visible hop (8, {t}, {d}) q_off {t}", 8, t, t, d, t, 0, True),
         (f"transformer {TRANSFORMER_HOP} causal", tb, tt, tt, td, 0, 0, True),
+        (f"transformer-pp stage {STAGE_HOP} causal", sb, st, st, sd, 0, 0, True),
+        (f"transformer-pp stage {STAGE_HOP} fully visible", sb, st, st, sd, st, 0, True),
         ("ragged (4, 136 x 200, 16) causal, partly visible", 4, 136, 200, 16, 200, 100, True),
         ("ragged (2, 200 x 136, 64) causal, rows with no key", 2, 200, 136, 64, 0, 16, True),
         ("ragged (3, 40 x 72, 8) non-causal", 3, 40, 72, 8, 0, 0, False),
@@ -1492,6 +1615,7 @@ def main() -> int:
     multihost_phase(count)
     serving = serving_phase(count)
     migration_phase(count)
+    warm = warmpool_phase(count)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
     f32_err = f32_kernel_phase()
@@ -1515,7 +1639,8 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/vector_add.cu",
         "replaces": "tpu_operator/workloads/collectives.py:96",
-        "launches": launches,
+        "launches": launches + warm["launches"],
+        "launches_by_check": {"vector-add": launches, "warm-pool": warm["launches"]},
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

@@ -6,6 +6,7 @@ reference's on the same outcomes; and the exit paths, which must leave no
 rank of a host alive."""
 
 import json
+import re
 import os
 import subprocess
 import sys
@@ -252,7 +253,10 @@ def test_no_rank_outlives_its_host(tmp_path, how, rc):
     if how == "watchdog":
         assert evidence["fault"]["type"] == "peer-heartbeat-lost"
     if how == "rank-fails":
-        assert evidence["ok"] is False and "local-rank1 exited 1" in evidence["error"]
+        # both spawned ranks fail alike (each waits 2 s for a store nobody
+        # serves), so the monitor names whichever it sees exit first
+        assert evidence["ok"] is False
+        assert re.search(r"local-rank[12] exited 1", evidence["error"]), evidence["error"]
         assert json.loads((tmp_path / "workload-results" / "results.json").read_text()
                           )["distributed"]["error"] == evidence["error"]
 

@@ -490,6 +490,8 @@ TRAIN_CASES = [
     (128, 2048, 2048, 128, 0, 0, True),
     (8, 2048, 2048, 128, 2048, 0, True),
     (16, 16, 16, 32, 0, 0, True),
+    (8, 16, 16, 16, 0, 0, True),  # a transformer-pp stage's hop
+    (8, 16, 16, 16, 16, 0, True),
     (4, 136, 200, 16, 200, 100, True),
     (2, 200, 136, 64, 0, 16, True),
     (3, 40, 72, 8, 0, 0, False),
@@ -552,6 +554,8 @@ FOLD_CASES = [
     (128, 2048, 2048, 128, 0, 0, True, False),
     (8, 2048, 2048, 128, 2048, 0, True, True),
     (16, 16, 16, 32, 0, 0, True, False),
+    (8, 16, 16, 16, 0, 0, True, False),  # a transformer-pp stage's hop
+    (8, 16, 16, 16, 16, 0, True, True),
     (4, 136, 200, 16, 200, 100, True, True),
     (3, 40, 72, 8, 0, 0, False, True),
     (3, 200, 200, 40, 0, 0, True, False),

@@ -53,7 +53,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "workloads.hbm_bench", "workloads.hbm_dma", "workloads.train_bench",
                    "workloads.moe", "workloads.ulysses", "workloads.pipeline",
                    "workloads.watchdog", "workloads.distributed",
-                   "workloads.serving", "workloads.checkpoint", "utils", "obs.profile",
+                   "workloads.serving", "workloads.checkpoint", "workloads.compile_cache",
+                   "workloads.warmpool", "utils", "obs.profile",
                    "kernels.vector_add", "kernels.flash_attention", "kernels.flash_backward",
                    "kernels.dma_pipeline", "kernels._build",
                    "k8s.nodeinfo", "obs.flight", "validator.status"):

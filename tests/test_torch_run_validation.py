@@ -125,20 +125,41 @@ def test_training_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys):
     assert {s["phase"] for s in samples if s["check"] == "train"} >= {"compile", "step", "result"}
 
 
+def test_every_reference_check_runs_in_the_port():
+    """The dispatch holds exactly the reference's 18 names, and none is a
+    stub: the last two, transformer-pp and warm-pool, run their modules."""
+    runners = rv.check_runners()
+    assert set(runners) == jrv.known_checks() and len(runners) == 18
+    assert not hasattr(rv, "NOT_PORTED") and not hasattr(rv, "_UNPORTED")
+    assert runners["transformer-pp"].__module__ == "tpu_operator_torch.workloads.collectives"
+
+
 @pytest.mark.parametrize("check", ["transformer-pp", "warm-pool"])
-def test_unported_check_fails_honestly(cpu_gate, monkeypatch, capsys, check):
-    monkeypatch.setenv("WORKLOAD_CHECKS", f"vector-add,{check}")
-    assert rv.main() == 1
-    ok_line, failed = _lines(capsys)
-    assert ok_line["ok"]
-    assert failed["check"] == check and not failed["ok"]
-    assert failed["error"] == rv.NOT_PORTED and "skipped" not in failed
-
-
-def test_only_two_checks_are_unported():
-    assert rv._UNPORTED == ("transformer-pp", "warm-pool")
-    assert set(rv.check_runners()) - set(rv._UNPORTED) == jrv.known_checks() - {
-        "transformer-pp", "warm-pool"}
+def test_last_two_checks_pass_on_cpu(cpu_gate, monkeypatch, capsys, tmp_path, check):
+    """transformer-pp and warm-pool through the entry point on the CPU, with
+    the reference's JSON line, drop-box entry and flight samples."""
+    monkeypatch.setenv("WORKLOAD_CHECKS", check)
+    monkeypatch.setenv("TPU_COMPILE_CACHE_ARTIFACTS", str(tmp_path / "artifacts"))
+    monkeypatch.delenv("TPU_FLEET_CACHE_URL", raising=False)
+    assert rv.main() == 0
+    (line,) = _lines(capsys)
+    assert line["check"] == check and line["ok"] and line["duration_s"] > 0
+    if check == "transformer-pp":
+        losses = line["losses"]
+        assert line["mesh"] == {"pp": 1, "dp": 1, "mp": 1} and line["pp_degenerate"]
+        assert len(losses) == 3 and all(b < a for a, b in zip(losses, losses[1:]))
+        assert line["attention_kernel"] == "plain" and line["backend"] == "cpu"
+        phases = {"compile", "step", "step-window", "result"}
+    else:
+        assert line["programs"] == 3 and (line["hits"], line["misses"]) == (0, 0)
+        assert all(r["finite"] for r in line["results"].values())
+        phases = {"cache", "result"}
+    results = jstatus.read_workload_results()
+    assert set(results["checks"]) == {check} and results["checks"][check]["ok"]
+    samples = jstatus.read_flight_record()
+    checks = {check, "compile-cache"} if check == "warm-pool" else {check}
+    assert {s["check"] for s in samples} == checks
+    assert {s["phase"] for s in samples} >= phases
 
 
 def test_serving_passes_on_cpu(cpu_gate, monkeypatch, capsys):

@@ -53,14 +53,21 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put the CUDA toolkit on PATH")
 
 
+def target(name: str) -> tuple[str, str]:
+    """``(digest, path)`` of ``csrc/<name>.cu``'s library, without building
+    it: the digest hashes the source and ``NVCC_FLAGS`` (the arch among
+    them), the path is where ``build`` puts the library."""
+    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
+        source = f.read()
+    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return digest, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
 def build(name: str) -> Built:
     """Compile ``csrc/<name>.cu`` unless a library for this exact source and
     flag set is already built; returns where it is and what it cost."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        source = f.read()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    _, out = target(name)
     if os.path.exists(out):
         return Built(out, 0.0, "")
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -50,6 +50,11 @@ COUNTER_KEYS = {
     "compile_s": "tpu_workload_compile_seconds",
     "gbps": "tpu_workload_achieved_gbps",
     "overhead_dominated": "tpu_workload_overhead_dominated",
+    # compile-artifact cache counters (workloads/compile_cache.py
+    # ArtifactStore.record_flight_sample): the warm-pool evidence
+    "cache_hits": "tpu_workload_compile_cache_hits_total",
+    "cache_misses": "tpu_workload_compile_cache_misses_total",
+    "cache_bytes": "tpu_workload_compile_cache_bytes_total",
     # sustained-serving telemetry (workloads/serving.py
     # ServingEngine.telemetry): per-step rolling rollups, every key
     # serve_-prefixed (this map is global across workloads)

@@ -1,6 +1,6 @@
 """The readiness gate's checks on PyTorch (vector-add, allreduce benchmark,
-sharded burn-in), the ring probe and the flagship transformer layer's train
-step.  Port of the main-path subset of ``tpu_operator/workloads/
+sharded burn-in), the ring probe, and the flagship transformer layer's train
+step alone and as a pipelined stack.  Port of ``tpu_operator/workloads/
 collectives.py``.
 
 - ``device_count_check``  — cards CUDA initialized vs the promised count
@@ -19,6 +19,10 @@ collectives.py``.
                             attention over mp (kernels B3 and B4 on a card),
                             the Megatron-SP MLP, exact gradients of the
                             global loss
+- ``transformer_pipeline_burn_in`` — the GPipe stack of such layers over the
+                            (pp, dp, mp) mesh (``make_mesh3``), one layer
+                            per pp stage, microbatches handed on over the
+                            pp chain
 
 The reference runs one program over all local chips; here every local card
 is one rank (``_ranks``), and with one card the check runs in-process with no
@@ -411,29 +415,37 @@ def _split_dp_mp(n: int) -> tuple:
 
 @dataclass
 class Mesh:
-    """This rank's place in the (dp, mp) mesh.  Rank r sits at
-    ``divmod(r, mp)``, the row-major layout of the reference's
-    ``devices.reshape(dp, mp)``; the groups are None for an in-process mesh
-    of one."""
+    """This rank's place in the (dp, mp) mesh, or in the (pp, dp, mp) mesh
+    when ``pp`` is set.  Rank r sits at ``(s·dp + i)·mp + j``, the row-major
+    layout of the reference's ``devices.reshape(pp, dp, mp)`` (s = 0 on the
+    2-D mesh); the groups are None for an in-process mesh of one."""
 
     dp: int
     mp: int
     rank: int
     device: torch.device
-    dp_group: Optional[object] = None  # ranks with my mp index: gradient mean
-    mp_group: Optional[object] = None  # ranks with my dp index: row-parallel sum
+    dp_group: Optional[object] = None  # ranks with my (pp,) mp index: gradient mean
+    mp_group: Optional[object] = None  # ranks with my (pp,) dp index: row-parallel sum
+    pp: Optional[int] = None
+    pp_group: Optional[object] = None     # ranks with my dp and mp indices: the stage chain
+    stage_group: Optional[object] = None  # the dp x mp ranks of my stage
 
     @property
     def size(self) -> int:
-        return self.dp * self.mp
+        return (self.pp or 1) * self.dp * self.mp
 
     @property
     def coords(self) -> tuple:
-        return divmod(self.rank, self.mp)
+        """(i, j), or (s, i, j) on the 3-D mesh."""
+        s, r = divmod(self.rank, self.dp * self.mp)
+        i, j = divmod(r, self.mp)
+        return (i, j) if self.pp is None else (s, i, j)
 
     @property
     def shape(self) -> dict:
-        return {"dp": self.dp, "mp": self.mp}
+        if self.pp is None:
+            return {"dp": self.dp, "mp": self.mp}
+        return {"pp": self.pp, "dp": self.dp, "mp": self.mp}
 
 
 def make_mesh(world_size: int = 1, rank: int = 0, device=None, shape=None) -> Mesh:
@@ -462,6 +474,57 @@ def make_mesh(world_size: int = 1, rank: int = 0, device=None, shape=None) -> Me
     return mesh
 
 
+def _split_pp(n: int) -> tuple:
+    """The reference's ``make_mesh3`` shape of n cards: pp 2 from four
+    cards up (n even), dp and mp of the rest as ``_split_dp_mp``."""
+    pp = 2 if n % 2 == 0 and n >= 4 else 1
+    return (pp, *_split_dp_mp(n // pp))
+
+
+def make_mesh3(world_size: int = 1, rank: int = 0, device=None, shape=None) -> Mesh:
+    """3-D (pp, dp, mp) mesh over ``world_size`` ranks, of ``shape`` when
+    given, else ``_split_pp``'s: (1, 1, 1) at 1 rank, (1, 1, 2) at 2,
+    (2, 1, 2) at 4, (2, 2, 2) at 8.  Above one rank every group exists, one
+    of a single rank too (a ring or chain of one never reaches the default
+    group), and it must run inside an initialized process group of that
+    size, on every rank."""
+    device = resolve_device(device)
+    pp, dp, mp = shape or _split_pp(world_size)
+    if pp * dp * mp != world_size:
+        raise ValueError(f"mesh {pp}x{dp}x{mp} over {world_size} ranks")
+    mesh = Mesh(dp, mp, rank, device, pp=pp)
+    if world_size == 1:
+        return mesh
+    if not dist.is_initialized() or dist.get_world_size() != world_size:
+        raise RuntimeError(f"make_mesh3({world_size}) needs a process group of that size")
+
+    def at(s, i, j):
+        return (s * dp + i) * mp + j
+
+    me = mesh.coords
+    # every rank creates every group, in the same order
+    for s in range(pp):
+        for i in range(dp):
+            group = dist.new_group([at(s, i, j) for j in range(mp)])
+            if (s, i) == me[:2]:
+                mesh.mp_group = group
+    for s in range(pp):
+        for j in range(mp):
+            group = dist.new_group([at(s, i, j) for i in range(dp)])
+            if (s, j) == (me[0], me[2]):
+                mesh.dp_group = group
+    for i in range(dp):
+        for j in range(mp):
+            group = dist.new_group([at(s, i, j) for s in range(pp)])
+            if (i, j) == me[1:]:
+                mesh.pp_group = group
+    for s in range(pp):
+        group = dist.new_group([at(s, i, j) for i in range(dp) for j in range(mp)])
+        if s == me[0]:
+            mesh.stage_group = group
+    return mesh
+
+
 def params_from_jax(w1: np.ndarray, w2: np.ndarray, mesh: Mesh) -> dict:
     """This rank's shard of full host weights (the JAX burn-in's, or any
     ``(d_model, d_hidden)`` / ``(d_hidden, d_model)`` pair), in the
@@ -474,7 +537,7 @@ def params_from_jax(w1: np.ndarray, w2: np.ndarray, mesh: Mesh) -> dict:
     if d_hidden % mesh.mp or w2.shape[0] != d_hidden:
         raise ValueError(f"d_hidden {d_hidden} does not split over mp={mesh.mp}")
     h = d_hidden // mesh.mp
-    j = mesh.coords[1]
+    j = mesh.coords[-1]
 
     return {"w1": _put(w1[:, j * h:(j + 1) * h], mesh), "w2": _put(w2[j * h:(j + 1) * h, :], mesh)}
 
@@ -663,9 +726,12 @@ _reduce_scatter_single = getattr(dist, "reduce_scatter_single", dist.reduce_scat
 
 
 def _rmsnorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm computed in f32, returned in x's dtype (the reference's)."""
-    x32 = x.float()
-    return (x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)).to(x.dtype)
+    """RMS norm computed in f32, returned in x's dtype (the reference's).
+    x is cast to f32 twice, as in the reference's program: through a bf16
+    x, each cast's backward rounds its own cotangent to bf16 before the two
+    are summed (in bf16), which is what the reference's transpose does."""
+    scale = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + eps)
+    return (x.float() * scale).to(x.dtype)
 
 
 def transformer_weights(d_model: int = 256, d_hidden: int = 1024, seed: int = 0) -> dict:
@@ -746,12 +812,17 @@ def _layer_fwd(xs, wq, wk, wv, wo, w1, w2, heads: int, mesh: Mesh, use_kernel: b
     b, s_loc, d = xs.shape
     hd = d // heads
     xf = xs.to(torch.bfloat16)
-    h = _rmsnorm(xf).float()
-    q = (h @ wq).reshape(b, s_loc, heads, hd)
-    k = (h @ wk).reshape(b, s_loc, heads, hd)
-    v = (h @ wv).reshape(b, s_loc, heads, hd)
+    h = _rmsnorm(xf)
+    # one bf16 -> f32 promotion per use, in the reference's order: when xs
+    # needs a gradient (a pipeline stage's input) each use's cotangent is
+    # rounded to bf16 on its own and the rounded ones are summed in bf16,
+    # as the reference's transpose does
+    q = (h.float() @ wq).reshape(b, s_loc, heads, hd)
+    k = (h.float() @ wk).reshape(b, s_loc, heads, hd)
+    v = (h.float() @ wv).reshape(b, s_loc, heads, hd)
     attn = ring_attention.ring_attention_remat(q, k, v, True, use_kernel, mesh.mp_group)
-    xa = xf.float() + attn.reshape(b, s_loc, d) @ wo
+    attn = attn.reshape(b, s_loc, d) @ wo
+    xa = xf.float() + attn
     g = _rmsnorm(xa)
     if mesh.mp > 1:
         g = _GatherSeq.apply(g, mesh)
@@ -891,3 +962,193 @@ def transformer_burn_in(
     x = np.random.default_rng(1).standard_normal(
         (batch_per_dp * dp, seq_per_mp * mp, d_model), dtype=np.float32)
     return transformer_run(weights, x, heads, steps, n, use_kernel, device)
+
+
+# ---------------------------------------------------------------------------
+# The full composition (the reference's :808-1003): a GPipe stack of
+# transformer stages over the (pp, dp, mp) mesh.  Each pp stage owns one
+# layer's weights; microbatches stream through the stages with one hop per
+# tick over the pp chain (``pipeline._Hop``), and inside a stage the layer
+# runs as in ``transformer_step``: batch over dp, ring-remat attention over
+# mp, the Megatron-SP MLP over mp.
+
+
+def transformer_pipeline_weights(pp: int, d_model: int = 128, d_hidden: int = 256,
+                                 seed: int = 0) -> dict:
+    """Every stage's full weights, f32 numpy of shape (pp, ...): standard
+    normals from ``default_rng(seed)`` times 1/sqrt(d_model), in the
+    reference's order.  f32 as the reference's are (its bf16 draws times a
+    numpy float64 scale promote to float32)."""
+    rng = np.random.default_rng(seed)
+    scale = np.float32(1.0 / np.sqrt(d_model))
+    shapes = {name: (pp, d_model, d_model) for name in TRANSFORMER_WEIGHTS[:4]}
+    shapes.update(w1=(pp, d_model, d_hidden), w2=(pp, d_hidden, d_model))
+    return {name: rng.standard_normal(shape, dtype=np.float32) * scale
+            for name, shape in shapes.items()}
+
+
+def transformer_pipeline_params_from_jax(weights: dict, mesh: Mesh) -> dict:
+    """This rank's shard of every stage's full host weights (the
+    reference's, or ``transformer_pipeline_weights``'): its stage's slice,
+    ``w1`` split by columns over mp and ``w2`` by rows."""
+    s = mesh.coords[0]
+    return transformer_params_from_jax({name: weights[name][s] for name in TRANSFORMER_WEIGHTS},
+                                       mesh)
+
+
+def transformer_pipeline_step(
+    mesh: Mesh, heads: int, params: dict, x: torch.Tensor, lr: float = 0.05,
+    use_kernel: Optional[bool] = None,
+) -> tuple:
+    """One SGD step of the pipelined stack on this rank's microbatches x
+    [M, b, s_loc, d] (f32; batch over dp, sequence over mp).  Returns
+    ``(loss, new_params)``, the loss the global mean square of the last
+    stage's outputs over every microbatch and token.
+
+    Every rank runs M + pp - 1 ticks of its stage's layer, the fill and
+    drain ticks included (their outputs are masked out of the loss, not
+    skipped, so every rank runs the same launches and the same backward):
+    stage 0 is fed microbatch min(t, M - 1), the others take what the last
+    hop delivered, and the last stage adds sum(y²) from tick pp - 1 on.  As
+    in ``transformer_step`` each rank differentiates its own share of the
+    loss; the hops' and the sequence collectives' backwards carry the terms
+    of the other ranks.  A stage's weights are private to it: the attention
+    weights' gradients are summed over the stage's dp x mp ranks, the MLP
+    slices' over its dp ranks, nothing over pp (the reference's pmeans over
+    the gradient that ``value_and_grad`` already summed)."""
+    from tpu_operator_torch.workloads.pipeline import _Hop
+
+    if use_kernel is None:
+        use_kernel = mesh.device.type == "cuda"
+    pp, s_pp = mesh.pp, mesh.coords[0]
+    ws = [params[name].detach().requires_grad_() for name in TRANSFORMER_WEIGHTS]
+    m, b, s_loc, d = x.shape
+    ticks = m + pp - 1
+    x_cur = x[0] if s_pp == 0 else torch.zeros_like(x[0])
+    total = x.new_zeros(())
+    for t in range(ticks):
+        y = _layer_fwd(x_cur, *ws, heads, mesh, use_kernel)
+        # the last stage lands microbatch t - (pp - 1); the mask keeps every
+        # rank's outputs in the graph, so every rank runs every backward
+        lands = s_pp == pp - 1 and t >= pp - 1
+        total = total + y.square().sum() * float(lands)
+        if t + 1 < ticks:  # the last tick's hop would carry nothing used
+            feed = x[min(t + 1, m - 1)]
+            x_cur = _Hop.apply(y, feed, mesh.pp_group) if pp > 1 else feed
+    count = m * b * mesh.dp * s_loc * mesh.mp * d
+    share = total / count
+    grads = torch.autograd.grad(share, ws)
+    new = {}
+    for name, w, g in zip(TRANSFORMER_WEIGHTS, ws, grads):
+        if name in ("w1", "w2"):
+            g = _sum(g, mesh.dp_group, mesh.dp)
+        else:
+            g = _sum(g, mesh.stage_group, mesh.dp * mesh.mp)
+        new[name] = (w.detach().float() - lr * g.float()).to(w.dtype)
+    # outside autograd: a differentiable sum would scale every gradient
+    return _sum(share.detach(), None, mesh.size), new
+
+
+def _transformer_pipeline_rank(
+    rank: int, n: int, device: torch.device, weights: dict, x: np.ndarray, heads: int,
+    steps: int, use_kernel: Optional[bool], shape: Optional[tuple], out_path: str,
+) -> dict:
+    # f32 products in full f32 on the card, as on the reference's CPU
+    # backend, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh3(n, rank, device, shape)
+    if use_kernel is None:
+        use_kernel = device.type == "cuda"
+    params = transformer_pipeline_params_from_jax(weights, mesh)
+    _, i, j = mesh.coords
+    b, s = x.shape[1] // mesh.dp, x.shape[2] // mesh.mp
+    xs = torch.tensor(x[:, i * b:(i + 1) * b, j * s:(j + 1) * s], dtype=torch.float32,
+                      device=device)
+    final = {}
+
+    def step(params, xs):
+        loss, new = transformer_pipeline_step(mesh, heads, params, xs, use_kernel=use_kernel)
+        final.update(new)
+        return loss, new
+
+    launches = ring_attention.remat_launches()
+    result = _acceptance_run(mesh, step, params, xs, steps, name="transformer-pp")
+    if mesh.pp == 1:
+        # below four cards no stage boundary is crossed: say so rather than
+        # let a dead pp path read as exercised (the reference's flag)
+        result["pp_degenerate"] = True
+    result["attention_kernel"] = ring_attention.remat_route(device, use_kernel)
+    # kernel launches in rank 0's process during this run
+    result["launches"] = {key: count - launches[key]
+                          for key, count in ring_attention.remat_launches().items()}
+    if out_path:
+        # every stage's full weights, gathered to rank 0
+        mine = {name: final[name] for name in TRANSFORMER_WEIGHTS[:4]}
+        mine.update(w1=_gather_mp(final["w1"], mesh, 1), w2=_gather_mp(final["w2"], mesh, 0))
+        stages = [mine]
+        if mesh.pp > 1:
+            stages = [{name: torch.empty_like(w) for name, w in mine.items()}
+                      for _ in range(mesh.pp)]
+            for name in TRANSFORMER_WEIGHTS:
+                dist.all_gather([st[name] for st in stages], mine[name].contiguous(),
+                                group=mesh.pp_group)
+        if rank == 0:
+            np.savez(out_path, **{name: torch.stack([st[name] for st in stages]).cpu().numpy()
+                                  for name in TRANSFORMER_WEIGHTS})
+    return result
+
+
+def transformer_pipeline_run(
+    weights: dict, x: np.ndarray, heads: int, steps: int = 3,
+    world_size: Optional[int] = None, use_kernel: Optional[bool] = None, device=None,
+    shape: Optional[tuple] = None, out_path: str = "",
+) -> dict:
+    """The acceptance run on given full host weights
+    (``transformer_pipeline_weights``' names and shapes, pp stages) and
+    microbatches x [M, B, S, d] (f32), B split over dp and S over mp, on a
+    (pp, dp, mp) mesh of ``shape`` (default ``make_mesh3``'s).  With
+    ``out_path``, rank 0 saves every stage's updated full weights there
+    (.npz, f32)."""
+    device = resolve_device(device)
+    n = world_size or local_world_size(device)
+    pp, dp, mp = shape or _split_pp(n)
+    if weights["wq"].shape[0] != pp:
+        raise ValueError(f"{weights['wq'].shape[0]} stages of weights for pp={pp}")
+    if x.shape[1] % dp or x.shape[2] % mp:
+        raise ValueError(f"x {x.shape} does not split over dp={dp}, mp={mp}")
+    # plain f32 host arrays: they travel to spawned ranks by pickle
+    kwargs = {
+        "weights": {name: np.asarray(weights[name], np.float32) for name in TRANSFORMER_WEIGHTS},
+        "x": np.asarray(x, np.float32), "heads": heads, "steps": steps,
+        "use_kernel": use_kernel, "shape": shape, "out_path": out_path,
+    }
+    if n == 1:
+        return _transformer_pipeline_rank(0, 1, device, **kwargs)
+    return _ranks.run(_transformer_pipeline_rank, n, device.type, **kwargs)
+
+
+def transformer_pipeline_burn_in(
+    world_size: Optional[int] = None,
+    steps: int = 3,
+    microbatches: int = 4,
+    batch_per_dp: int = 2,
+    seq_per_mp: int = 16,
+    d_model: int = 64,
+    d_hidden: int = 128,
+    heads: int = 4,
+    use_kernel: Optional[bool] = None,
+    device=None,
+) -> dict:
+    """Acceptance run of the full pp/dp/mp composition at the reference's
+    defaults (its shipping sizes); same contract as ``burn_in``, plus
+    ``pp_degenerate`` below four cards, ``attention_kernel`` and the
+    kernels' ``launches``.  On a card each stage's attention runs on
+    kernels B3 and B4 (head dim 16, 16 tokens per rank), where the
+    reference's check takes its jnp path."""
+    device = resolve_device(device)
+    n = world_size or local_world_size(device)
+    pp, dp, mp = _split_pp(n)
+    weights = transformer_pipeline_weights(pp, d_model, d_hidden, seed=0)
+    x = np.random.default_rng(1).standard_normal(
+        (microbatches, batch_per_dp * dp, seq_per_mp * mp, d_model), dtype=np.float32)
+    return transformer_pipeline_run(weights, x, heads, steps, n, use_kernel, device)

@@ -45,19 +45,24 @@ def stage_fn(x, w1, w2):
     return x + (h.to(w2.dtype) @ w2).float()
 
 
-def _chain_exchange(send: torch.Tensor, forward: bool) -> Optional[torch.Tensor]:
+def _chain_exchange(send: torch.Tensor, forward: bool, group=None) -> Optional[torch.Tensor]:
     """Post this rank's send and receive of one chain hop together: forward
     sends ``send`` to the next stage and receives from the previous one,
-    backward the reverse.  Returns the received tensor, or None at the
-    chain's end."""
-    s, p = _ring_group()
+    backward the reverse.  The chain is ``group`` (its ranks in group order;
+    the default process group when None).  Returns the received tensor, or
+    None at the chain's end."""
+    s, p = _ring_group(group)
     dst, src = (s + 1, s - 1) if forward else (s - 1, s + 1)
     recv = torch.empty_like(send) if 0 <= src < p else None
+
+    def peer(r):  # P2POp takes global ranks
+        return r if group is None else dist.get_global_rank(group, r)
+
     ops = []
     if 0 <= dst < p:
-        ops.append(dist.P2POp(dist.isend, send.contiguous(), dst))
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), peer(dst), group=group))
     if recv is not None:
-        ops.append(dist.P2POp(dist.irecv, recv, src))
+        ops.append(dist.P2POp(dist.irecv, recv, peer(src), group=group))
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
@@ -65,21 +70,23 @@ def _chain_exchange(send: torch.Tensor, forward: bool) -> Optional[torch.Tensor]
 
 
 class _Hop(torch.autograd.Function):
-    """One tick's hop: ``y`` goes to the next stage; returns what the
-    previous stage sent, or ``feed`` on stage 0 (the next microbatch).  The
-    backward sends the gradient of what was received one stage back and
-    receives ``y``'s gradient from the next stage (zero on the last)."""
+    """One tick's hop along the chain ``group`` (the default process group
+    when None): ``y`` goes to the next stage; returns what the previous
+    stage sent, or ``feed`` on stage 0 (the next microbatch).  The backward
+    sends the gradient of what was received one stage back and receives
+    ``y``'s gradient from the next stage (zero on the last)."""
 
     @staticmethod
-    def forward(ctx, y, feed):
-        recv = _chain_exchange(y, True)
+    def forward(ctx, y, feed, group=None):
+        ctx.group = group
+        recv = _chain_exchange(y, True, group)
         return feed.clone() if recv is None else recv
 
     @staticmethod
     def backward(ctx, grad):
-        dy = _chain_exchange(grad, False)
-        first = _ring_group()[0] == 0
-        return (torch.zeros_like(grad) if dy is None else dy), (grad if first else None)
+        dy = _chain_exchange(grad, False, ctx.group)
+        first = _ring_group(ctx.group)[0] == 0
+        return (torch.zeros_like(grad) if dy is None else dy), (grad if first else None), None
 
 
 def pipeline_sharded(x, w1, w2) -> torch.Tensor:

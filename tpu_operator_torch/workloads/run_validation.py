@@ -7,8 +7,7 @@ flight samples and writes the drop-box the validator reads back.
 
 Env (as the reference, plus ``TORCH_DEVICE``):
 - ``WORKLOAD_CHECKS``: comma list of check names (default
-  ``vector-add,allreduce,burn-in``); the names are the reference's 18, and
-  a check not yet ported fails with an error saying so; ported:
+  ``vector-add,allreduce,burn-in``); the names are the reference's 18:
   ``vector-add``, ``allreduce``, ``burn-in``, ``ring-attention``,
   ``longctx``, ``decode``, the post-ready perf probes ``matmul``, ``hbm``,
   ``hbm-dma`` (kernel B2, report-only) and ``ring`` (the per-link
@@ -19,8 +18,13 @@ Env (as the reference, plus ``TORCH_DEVICE``):
   ``ulysses`` (all-to-all sequence parallel attention), ``moe`` (expert
   parallel, two all-to-alls) and ``pipeline`` (GPipe over a chain of
   cards), and ``serving`` (the continuous-batching engine over the paged KV
-  cache: sequential vs batched scheduling, identical outputs); not yet
-  ported: ``transformer-pp``, ``warm-pool``
+  cache: sequential vs batched scheduling, identical outputs),
+  ``transformer-pp`` (the GPipe stack of transformer stages over the (pp,
+  dp, mp) mesh, kernels B3 and B4 on a card) and ``warm-pool`` (the kernel
+  libraries through the fleet artifact cache, then the canonical programs,
+  vector-add on kernel B1; env ``TPU_COMPILE_CACHE_ARTIFACTS``,
+  ``TPU_COMPILE_CACHE_MAX_BYTES``, ``TPU_FLEET_CACHE_URL``,
+  ``TPU_CACHE_GENERATION``, ``TPU_CACHE_TOPOLOGY``)
 - ``TORCH_DEVICE``: ``cpu`` runs the checks on the CPU on purpose; unset,
   the gate needs a card and fails without one
 - ``EXPECTED_DEVICES``: promised card count, checked first; a mismatch
@@ -45,16 +49,6 @@ import json
 import os
 import sys
 import time
-
-NOT_PORTED = "not yet ported to tpu_operator_torch"
-
-# the reference's checks this port does not run yet, in its dispatch order
-_UNPORTED = ("transformer-pp", "warm-pool")
-
-
-def _not_ported() -> dict:
-    return {"ok": False, "error": NOT_PORTED}
-
 
 def check_runners() -> dict:
     """Check name → zero-arg runner, the one source of truth for the
@@ -168,6 +162,13 @@ def check_runners() -> dict:
 
         return pp.quick_check()
 
+    def warm_pool():
+        # the kernel libraries through the fleet artifact cache: prewarm →
+        # compile-or-fetch → execute → publish (workloads/warmpool.py)
+        from tpu_operator_torch.workloads import warmpool
+
+        return warmpool.quick_check()
+
     def serving():
         # continuous-batching serving engine over the paged KV cache: a
         # small closed-loop A/B; batching must keep every request's tokens
@@ -183,6 +184,9 @@ def check_runners() -> dict:
         # the flagship layer: dp batch + mp ring-attention sequence
         # parallelism + Megatron-SP MLP in one train step
         "transformer": collectives.transformer_burn_in,
+        # the full composition: GPipe microbatch pipeline of transformer
+        # stages, each internally the dp + sp + tp layer
+        "transformer-pp": collectives.transformer_pipeline_burn_in,
         "train": train,
         "matmul": matmul,
         "ring-attention": ring_attention,
@@ -194,8 +198,8 @@ def check_runners() -> dict:
         "ulysses": ulysses,
         "moe": moe,
         "pipeline": pipeline,
+        "warm-pool": warm_pool,
         "serving": serving,
-        **{name: _not_ported for name in _UNPORTED},
     }
 
 
