@@ -6,8 +6,9 @@
 Drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
 census, the multi-host program, the serving engine, the migratable
-training job and the warm pool of kernel libraries, the way the validator
-and the migration drain run them, and holds every kernel on those paths
+training job, the warm pool of kernel libraries, the node validator and the
+partition acceptance, the way the validator and the migration drain run
+them, and holds every kernel on those paths
 against its plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
@@ -86,7 +87,23 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    compile_s); in both the build dir holds every library and vector-add
    ran on B1, equal to its plain version; prints both runs and the
    libraries' sizes
-12. kernel   — each kernel against its plain version on the card: the add
+12. validator — the node validator (``tpu_operator_torch/validator``) on the
+   card in-process, under a fresh TPU_VALIDATION_ROOT: libtpu (the driver
+   library found, ``chips`` the card count), pjrt (the CUDA runtime's count
+   equal to the host's), plugin-ready written by hand (no apiserver), jax
+   (in-process: B1 launched, vector-add's max_error 0) and perf (every
+   probe ok and run, one card's ring skip the reference's own; B2 launched,
+   B3 on more than one card); then the gate pod's contract without an
+   apiserver: the pod the validator builds (``nvidia.com/gpu`` limits, no
+   TORCH_DEVICE, the cache-key fields) run as the kubelet would, rc 0, the
+   drop-box holding the allreduce figures, and on more than one card the
+   busbw floor armed from the NVLink catalogue and cleared; prints the card
+   counts of nvidia-smi -L, /dev and CUDA, and each component's wall time
+13. partition — the partition acceptance on the cards: two units of half
+   the cards each (CUDA_VISIBLE_DEVICES), each burn-in exactly equal to its
+   solo run, the trajectories independent, each unit seeing its own cards;
+   on one card one unit, solo against the barrier run
+14. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -121,7 +138,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    Tq 136 x Tk 200 at D 64, rows that see no key and BH 1: out within 1e-4
    of max |plain|, lse within 1e-5, blind rows exactly 0 and -1e30, each
    case launched twice and bit-identical
-13. timing   — CUDA-event medians of each kernel, its plain version and the
+15. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -800,6 +817,183 @@ def warmpool_phase(n_cards: int) -> dict:
           f"{warm['duration_s']!r} s (fetch_s {warm['fetch_s']!r}; {warm['wall_s']:.2f}s "
           f"process wall); library bytes {sizes} ({sum(sizes.values())} in all)", flush=True)
     return {"runs": runs, "launches": sum(r["launches"]["vector_add"] for r in runs.values())}
+
+
+def _card_lines() -> list:
+    return [line for line in subprocess.run(
+        ["nvidia-smi", "-L"], capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.splitlines() if line.startswith("GPU ")]
+
+
+def validator_phase(n_cards: int, root: str, name: str) -> dict:
+    """The node validator (``tpu_operator_torch/validator``) in-process on
+    the card, as the validator DaemonSet runs it without a workload pod,
+    under a fresh TPU_VALIDATION_ROOT at ``root``: libtpu (the driver
+    library, ``chips`` the card count), pjrt (the runtime's count equal to
+    the host's), plugin-ready written by hand (no apiserver here), jax
+    (in-process, B1 launched, vector-add's max_error 0), perf (every probe
+    ok and run; one card's ring is the reference's own skip; B2 launched,
+    and B3 on more than one card).  Then the gate pod's contract without an
+    apiserver: the pod ``_workload_pod`` builds (``nvidia.com/gpu`` in its
+    limits, no TORCH_DEVICE, the cache-key fields) run as the kubelet would,
+    its command with its env and the hostPath env on temporary directories:
+    rc 0 and the drop-box holding the allreduce figures; on more than one
+    card the allreduce floor armed from the catalogue and cleared.  Returns
+    the launches of B1, B2 and B3 in the in-process components."""
+    import asyncio
+
+    import torch
+
+    from tpu_operator_torch import consts, hw
+    from tpu_operator_torch.k8s import nodeinfo
+    from tpu_operator_torch.kernels import dma_pipeline as dp
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import vector_add as va
+    from tpu_operator_torch.validator import components, status
+
+    cards = _card_lines()
+    nodes = hw.card_device_paths()
+    print(f"validator: nvidia-smi -L {len(cards)} card(s) {cards}; /dev card nodes "
+          f"{[os.path.basename(p) for p in nodes]}; torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}", flush=True)
+    require(len(cards) == n_cards, f"nvidia-smi lists {len(cards)} cards, CUDA sees {n_cards}")
+    libcuda = hw.libcuda_path()
+    print(f"validator: the driver library on this machine: {libcuda!r}", flush=True)
+    require(libcuda, "no driver library (libcuda) under the usual host paths")
+    os.environ["TPU_VALIDATION_ROOT"] = root
+    if len(nodes) != len(cards):
+        # this machine's /dev disagrees with the cards it was given: a
+        # synthetic /dev matching nvidia-smi -L, with the machine's driver
+        # library, for this phase only
+        dev = os.path.join(root, "hw", "dev")
+        os.makedirs(dev)
+        for i in range(len(cards)):
+            open(os.path.join(dev, f"nvidia{i}"), "w").close()
+        os.environ["TPU_HW_ROOT"] = os.path.join(root, "hw")
+        os.environ["LIBCUDA_PATH"] = libcuda
+        print(f"validator: /dev holds {len(nodes)} card nodes for {len(cards)} cards: "
+              f"TPU_HW_ROOT is a synthetic /dev of {len(cards)} for this phase", flush=True)
+    v = components.Validator(components.ValidatorConfig(
+        node_name="", with_workload=False, platform="cuda", sleep_interval=0.1,
+        resource_retries=3, workload_retries=3))
+    times = {}
+
+    def run(component: str) -> dict:
+        t0 = time.perf_counter()
+        asyncio.run(v.run(component))
+        times[component] = time.perf_counter() - t0
+        return status.read_status(component)
+
+    try:
+        lib = run("libtpu")
+        require(lib["libtpu_path"] and lib["chips"] == n_cards, f"libtpu-ready {lib}")
+        pjrt = run("pjrt")
+        require(pjrt["device_count"] == pjrt["host_chips"] == n_cards
+                and pjrt["device_kind"] == name, f"pjrt-ready {pjrt}")
+        status.write_ready("plugin", {"allocatable": n_cards})
+        va.launches = 0
+        gate = run("jax")
+        b1 = va.launches
+        vector_add = [s for s in status.read_flight_record()
+                      if s.get("check") == "vector-add" and s.get("phase") == "result"]
+        require(gate["mode"] == "in-process" and gate["devices"] == n_cards, f"jax-ready {gate}")
+        require(b1 > 0, "the validator's gate ran without launching the vector_add kernel")
+        require(len(vector_add) == 1 and vector_add[0]["metrics"]["max_error"] == 0.0,
+                f"vector-add in the gate: {vector_add}")
+        dp.launches = fa.block_update_launches = 0
+        perf = run("perf")
+        b2, b3 = dp.launches, fa.block_update_launches
+        probes = perf["checks"]
+        if n_cards > 1:
+            b3 += probes["ring-attention"]["launches"]  # rank 0's, in its own process
+        print(f"validator: perf-ready {json.dumps(perf)[:4000]}", flush=True)
+        require(perf["ok"] and all(r.get("ok") for r in probes.values()), f"perf: {perf}")
+        expected = {"matmul", "hbm", "hbm-dma", "ring"} | (
+            {"ring-attention"} if n_cards > 1 else {"burn-in"})
+        require(set(probes) == expected, f"perf ran {sorted(probes)}")
+        for probe, r in probes.items():
+            # one card has no ring: the reference's own skip, the only one
+            allowed = probe == "ring" and n_cards == 1 and r.get("skipped") == "single card: no ring"
+            require("skipped" not in r or allowed, f"perf probe {probe} skipped: {r}")
+        require(b2 > 0, "the validator's perf ran without launching the DMA-pipeline kernel")
+        require(n_cards == 1 or b3 > 0, "ring-attention in perf did not launch the block update")
+
+        # the gate pod's contract, with no apiserver
+        label = name.replace(" ", "-")  # the product label NVIDIA's feature discovery sets
+        require(nodeinfo.generation_of_node({"metadata": {"labels": {
+            consts.GPU_PRODUCT_LABEL: label}}}) == nodeinfo.generation_of(name),
+            f"the product label {label!r} reads as another card")
+        min_gbps = (components._allreduce_min_gbps(nodeinfo.generation_of(name), n_cards)
+                    if n_cards > 1 else 0.0)
+        key_env = {**asyncio.run(v._cache_key_env()), "TPU_CACHE_GENERATION": label}
+        pod = v._workload_pod("tpu-jax-workload-validation", checks="vector-add,allreduce",
+                              tpu_request=n_cards, owner=None, min_gbps=min_gbps,
+                              cache_key_env=key_env)
+        ctr = pod["spec"]["containers"][0]
+        env = {e["name"]: e["value"] for e in ctr["env"]}
+        require(ctr["resources"]["limits"] == {consts.GPU_RESOURCE: str(n_cards)}
+                and "TORCH_DEVICE" not in env and ctr["command"] == components.WORKLOAD_COMMAND
+                and env["TPU_LIBTPU_VERSION"] == torch.version.cuda, f"the gate pod {pod}")
+        # the kubelet's hostPaths: the cache beside this root, the drop-box
+        # this root's own (the validator reads what the pod writes)
+        cache = os.path.join(root, "compile_cache")
+        env = {k: val.replace(consts.COMPILE_CACHE_DIR, cache) for k, val in env.items()}
+        proc_env = _subprocess_env(root, **env)
+        for key in ("TORCH_DEVICE", "DIST_CPU_RANKS", "TPU_HW_ROOT", "LIBCUDA_PATH"):
+            proc_env.pop(key, None)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, *ctr["command"][1:]], env=proc_env,
+                              capture_output=True, text=True, timeout=600)
+        times["gate pod"] = time.perf_counter() - t0
+        dropbox = status.read_workload_results() or {"checks": {}}
+        print(f"validator: gate pod rc={proc.returncode} env {env}; stdout "
+              f"{proc.stdout.strip()}", flush=True)
+        require(proc.returncode == 0, f"the gate pod failed: {proc.stderr[-3000:]}")
+        measured = components._measured_from_results(dropbox)
+        allreduce = dropbox["checks"].get("allreduce", {})
+        require(measured.get("allreduce_min_gbps") == min_gbps
+                and ("algbw_gbps" in measured or allreduce["overhead_dominated"]),
+                f"the drop-box's allreduce {allreduce} reads as {measured}")
+        if n_cards > 1:
+            require(allreduce["gated"] and allreduce["busbw_gbps"] >= min_gbps,
+                    f"allreduce {allreduce['busbw_gbps']} GB/s against the floor {min_gbps}")
+        print(f"validator: the gate pod's allreduce busbw {allreduce['busbw_gbps']!r} GB/s "
+              f"over {allreduce['devices']} card(s), floor {min_gbps!r} (gated "
+              f"{allreduce['gated']}); measured {measured}", flush=True)
+    finally:
+        for key in ("TPU_HW_ROOT", "LIBCUDA_PATH"):
+            os.environ.pop(key, None)
+    print("validator: wall seconds " + ", ".join(f"{k} {t:.2f}" for k, t in times.items())
+          + f"; launches B1 {b1}, B2 {b2}, B3 {b3}", flush=True)
+    return {"vector_add": b1, "dma_pipeline_copy": b2, "flash_block_update": b3}
+
+
+def partition_phase(n_cards: int, root: str) -> dict:
+    """The partition acceptance on the cards (``simulate_cpu=False``): two
+    units of half the cards each, masked by CUDA_VISIBLE_DEVICES, each
+    burn-in exactly equal to its solo run, the trajectories independent and
+    each unit seeing its own cards; on one card, one unit, solo against the
+    barrier run."""
+    from tpu_operator_torch.workloads import partition_acceptance as pa
+
+    half = n_cards // 2
+    units = ({"a": list(range(half)), "b": list(range(half, 2 * half))} if n_cards > 1
+             else {"a": [0]})
+    os.environ["TPU_VALIDATION_ROOT"] = root
+    t0 = time.perf_counter()
+    r = pa.concurrent_acceptance(units, f"1x{max(1, half)}", steps=3, timeout=300,
+                                 simulate_cpu=False)
+    wall = time.perf_counter() - t0
+    print(f"partition: {json.dumps(r)[:4000]} in {wall:.2f}s wall", flush=True)
+    require(r["ok"] and r["independent_trajectories"], f"partition acceptance failed: {r}")
+    for unit, chips in units.items():
+        u = r["units"][unit]
+        require(u["matches_solo"] and u["devices"] == len(chips),
+                f"unit {unit} on {chips}: {u}")
+    if n_cards == 1:
+        print("partition: one card: disjoint partitions cannot be shown, only a unit's "
+              "solo run against its barrier run", flush=True)
+    return r
 
 
 def kernel_phase() -> float:
@@ -1616,6 +1810,9 @@ def main() -> int:
     serving = serving_phase(count)
     migration_phase(count)
     warm = warmpool_phase(count)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-validator-") as root:
+        validator = validator_phase(count, os.path.join(root, "validator"), name)
+        partition_phase(count, os.path.join(root, "partition"))
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
     f32_err = f32_kernel_phase()
@@ -1639,8 +1836,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/vector_add.cu",
         "replaces": "tpu_operator/workloads/collectives.py:96",
-        "launches": launches + warm["launches"],
-        "launches_by_check": {"vector-add": launches, "warm-pool": warm["launches"]},
+        "launches": launches + warm["launches"] + validator["vector_add"],
+        "launches_by_check": {"vector-add": launches, "warm-pool": warm["launches"],
+                              "validator": validator["vector_add"]},
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -1667,7 +1865,7 @@ def main() -> int:
         "route": "cuda",
         "source": source,
         "replaces": "tpu_operator/workloads/ring_attention.py:118",
-        "launches": update_launches,
+        "launches": update_launches + validator["flash_block_update"],
         "max_abs_err": flash_err["flash_block_update"],
         **entry(ft["ring_hop"]),
         "nearest_library_ms": ft["ring_hop"]["nearest_library_ms"],
@@ -1679,7 +1877,7 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/dma_pipeline.cu",
         "replaces": "tpu_operator/workloads/hbm_pallas.py:48",
-        "launches": dma_launches,
+        "launches": dma_launches + validator["dma_pipeline_copy"],
         "max_abs_err": dma_err,
         **entry(dt[1]),
         "library_note": dt[1]["library_note"],

@@ -57,7 +57,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "workloads.warmpool", "utils", "obs.profile",
                    "kernels.vector_add", "kernels.flash_attention", "kernels.flash_backward",
                    "kernels.dma_pipeline", "kernels._build",
-                   "k8s.nodeinfo", "obs.flight", "validator.status"):
+                   "k8s.nodeinfo", "obs.flight", "validator.status",
+                   "hw", "k8s.client", "obs.events", "validator.components",
+                   "validator.cli", "workloads.partition_acceptance"):
         assert f"tpu_operator_torch.{module}" in names.split(",")
     assert leaked == "LEAKED []"
 

@@ -433,3 +433,42 @@ def replay(samples: list[dict]) -> None:
     recorder = active()
     if recorder is not None:
         recorder.replay(samples)
+
+
+def push_join_phases(
+    node: str,
+    phases: dict,
+    trace_id: str = "",
+    url: str = "",
+    timeout: float = 2.0,
+) -> bool:
+    """One-shot POST of a node's join→validated phase segments to the
+    metrics agent (``TPU_METRICS_PUSH_URL``), which forwards them to the
+    operator's fleet ingest as ``join_phase_seconds{node,phase}`` samples.
+    Blocking: the validator calls it in an executor after jax-ready is
+    written.  Best-effort: returns False instead of raising."""
+    url = url or os.environ.get(PUSH_ENV, "")
+    clean = {
+        str(k): float(v)
+        for k, v in (phases or {}).items()
+        if isinstance(v, (int, float))
+        and not isinstance(v, bool)
+        and math.isfinite(float(v))
+        and float(v) >= 0.0
+    }
+    if not url or not node or not clean:
+        return False
+    body: dict = {"source": "workload", "node": node, "join_phases": clean}
+    if trace_id:
+        body["trace_id"] = trace_id
+    req = urllib.request.Request(
+        url,
+        data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"},
+        method="POST",
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout):
+            return True
+    except (urllib.error.URLError, OSError, ValueError):
+        return False

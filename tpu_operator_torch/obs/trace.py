@@ -151,3 +151,20 @@ def span(name: str, kind: str = "", **attrs) -> Iterator[Optional[Span]]:
         return
     with tracer.span(name, kind=kind, **attrs) as sp:
         yield sp
+
+
+def trace_id() -> str:
+    sp = _current_span.get()
+    return sp.trace_id if sp is not None else ""
+
+
+def current_traceparent() -> str:
+    """The active span's serialized context, ready for a ``TPU_TRACEPARENT``
+    env var; empty when untraced."""
+    sp = _current_span.get()
+    if sp is None:
+        return ""
+    parts = [sp.trace_id, sp.span_id or "0"]
+    if sp.reconcile_id:
+        parts.append(sp.reconcile_id)
+    return "-".join(parts)

@@ -18,15 +18,17 @@ under the card's name.
 
 import os
 
-import torch
-
 DEVICE_ENV = "TORCH_DEVICE"
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None):
     """The device a workload runs on: ``device`` when given, else
     ``TORCH_DEVICE``, else ``cuda``.  Raises when CUDA is asked for (or
-    defaulted to) and no card is visible."""
+    defaulted to) and no card is visible.  Imports torch here: importing
+    the package does not (the validator's control-plane components read
+    ``compile_cache`` without paying for torch)."""
+    import torch
+
     requested = device if device is not None else os.environ.get(DEVICE_ENV, "") or "cuda"
     dev = torch.device(requested)
     if dev.type == "cuda" and not torch.cuda.is_available():

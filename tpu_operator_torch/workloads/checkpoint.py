@@ -802,11 +802,11 @@ def run_migratable_training(
     :class:`MigrationSignal` pickles with its file channels, and SIGTERM to
     this process reaches rank 0 through its mirror file.  Returns the
     reference's result keys, plus ``losses`` and ``weights_sha256``."""
-    from tpu_operator_torch.workloads import _ranks, distributed, resolve_device
+    from tpu_operator_torch.workloads import _ranks, collectives, resolve_device
 
     device = resolve_device(device)
     if devices is None:
-        devices = distributed.local_rank_count(device)
+        devices = collectives.local_world_size(device)
     sig = signal_source or MigrationSignal()
     dp, mp = _mesh_from_topology(topology, devices)
     kwargs = dict(ckpt_dir=ckpt_dir, topology=topology, steps=steps, ckpt_every=ckpt_every,

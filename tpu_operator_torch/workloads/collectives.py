@@ -33,6 +33,7 @@ process group.  Functions take ``world_size=`` where the reference takes
 from __future__ import annotations
 
 import functools
+import os
 import time
 from dataclasses import dataclass
 from typing import Optional
@@ -47,10 +48,18 @@ from tpu_operator_torch.obs import profile as obs_profile
 from tpu_operator_torch.workloads import _ranks, resolve_device, ring_attention, timing
 
 
+# gloo ranks a process runs on the CPU, the counterpart of the reference's
+# --xla_force_host_platform_device_count virtual devices (the multi-host
+# program's hosts and the partition acceptance's units set it)
+CPU_RANKS_ENV = "DIST_CPU_RANKS"
+
+
 def local_world_size(device: torch.device) -> int:
-    """Ranks a check runs on by default: one per visible card; one on the
-    CPU (tests ask for more with ``world_size``)."""
-    return torch.cuda.device_count() if device.type == "cuda" else 1
+    """Ranks a check runs on by default: one per visible card; DIST_CPU_RANKS
+    (default 1) on the CPU (tests also ask for more with ``world_size``)."""
+    if device.type == "cuda":
+        return torch.cuda.device_count()
+    return int(os.environ.get(CPU_RANKS_ENV, "1") or 1)
 
 
 def _sum(t: torch.Tensor, group, size: int) -> torch.Tensor:
@@ -75,16 +84,16 @@ def device_count_check(
     must fail here with the counts, not pass every check on the survivors.
 
     Visible is ``torch.cuda.device_count()`` on a card and the rank count
-    (``world_size``, default 1) on the CPU; the global count is the
-    initialized process group's size (the multi-host program's world), else
-    the local count.  Enforced only on backends named
+    (``world_size``, default ``local_world_size``) on the CPU; the global
+    count is the initialized process group's size (the multi-host program's
+    world), else the local count.  Enforced only on backends named
     in ``DEVICE_COUNT_GATE_BACKENDS`` (default cuda — the CPU rank count is a
     test-harness knob, not hardware truth); unenforced runs still report."""
     device = resolve_device(device)
     if device.type == "cuda":
         visible_local = torch.cuda.device_count()
     else:
-        visible_local = world_size or 1
+        visible_local = world_size or local_world_size(device)
     # every host's ranks when a rendezvous joined them; one host otherwise
     visible_global = dist.get_world_size() if dist.is_initialized() else visible_local
     expected_global = expected_local * max(1, num_processes)

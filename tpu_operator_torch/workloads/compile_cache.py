@@ -112,12 +112,25 @@ def kind_fingerprint(
 
 
 def current_versions() -> tuple[str, str]:
-    """(torch version, CUDA version) of this process: the software half of
-    every :class:`CacheKey` minted locally, under the reference's
-    ``jax_version`` and ``libtpu_version`` fields."""
-    import torch
+    """(torch version, CUDA version) of the installed torch: the software
+    half of every :class:`CacheKey` minted locally, under the reference's
+    ``jax_version`` and ``libtpu_version`` fields.  Read from the constants
+    of torch's ``version.py`` (what ``torch.__version__`` and
+    ``torch.version.cuda`` are) without importing torch: the validator's
+    plugin component fills a workload pod's key fields with them."""
+    import ast
+    import importlib.util
 
-    return torch.__version__, torch.version.cuda or ""
+    spec = importlib.util.find_spec("torch")
+    with open(os.path.join(spec.submodule_search_locations[0], "version.py")) as f:
+        tree = ast.parse(f.read())
+    values = {}
+    for node in tree.body:
+        if isinstance(node, (ast.Assign, ast.AnnAssign)) and isinstance(node.value, ast.Constant):
+            for target in node.targets if isinstance(node, ast.Assign) else [node.target]:
+                if isinstance(target, ast.Name):
+                    values[target.id] = node.value.value
+    return values["__version__"], values.get("cuda") or ""
 
 
 # ---------------------------------------------------------------------------

@@ -63,7 +63,7 @@ from typing import Optional
 
 import numpy as np
 
-CPU_RANKS_ENV = "DIST_CPU_RANKS"
+CPU_RANKS_ENV = "DIST_CPU_RANKS"  # the knob collectives.local_world_size reads
 _LOCAL_KEY = "tpuop/local"
 
 # the failing host's phase, readable from main()'s exception handler
@@ -89,15 +89,6 @@ def _enter_phase(wd, name: str, process_id: int) -> None:
                 flush=True,
             )
             os.kill(os.getpid(), signal.SIGKILL)
-
-
-def local_rank_count(device) -> int:
-    """Ranks this host runs: one per visible card, DIST_CPU_RANKS on the CPU."""
-    import torch
-
-    if device.type == "cuda":
-        return torch.cuda.device_count()
-    return int(os.environ.get(CPU_RANKS_ENV, "1") or 1)
 
 
 def _store(address: str, is_master: bool, timeout_s: float):
@@ -251,10 +242,11 @@ def run_worker(
     import torch
     import torch.distributed as dist
 
-    from tpu_operator_torch.workloads import resolve_device
+    from tpu_operator_torch.workloads import collectives, resolve_device
 
     device = resolve_device(device)
-    local = local_rank_count(device)
+    # one rank per visible card, DIST_CPU_RANKS on the CPU
+    local = collectives.local_world_size(device)
     init_timeout = float(os.environ.get("DIST_INIT_TIMEOUT_S", "120") or 120)
     scope = os.environ.get("RESULTS_SCOPE", "")
     if device.type == "cuda":

@@ -1,5 +1,6 @@
 """Shared timing rules for the gate's measurements: own copy of
-``tpu_operator/workloads/timing.py``'s probe, floor subtraction and gate.
+``tpu_operator/workloads/timing.py``'s probe, floor subtraction, gate and
+round-over-round verdict.
 
 PyTorch launches work asynchronously, and a collective can run on a stream
 of its own, so a timed region on the card ends in a device synchronize:
@@ -53,6 +54,40 @@ def subtract_floor(
     if dominated:
         times = sorted(t / per for t in raw)
     return times, dominated
+
+
+def regression_verdict(
+    current,
+    prior,
+    threshold: float = 0.07,
+    higher_is_better: bool = True,
+) -> Optional[dict]:
+    """The one round-over-round comparison rule: relative delta against the
+    prior value, verdict ``improved`` / ``flat`` / ``regressed`` outside or
+    inside the ``threshold`` band.  None when either side is unusable
+    (missing, zero prior, non-numeric)."""
+    if (
+        not isinstance(current, (int, float))
+        or not isinstance(prior, (int, float))
+        or isinstance(current, bool)
+        or isinstance(prior, bool)
+        or prior == 0
+    ):
+        return None
+    delta = (current - prior) / abs(prior)
+    signed = delta if higher_is_better else -delta
+    if signed >= threshold:
+        verdict = "improved"
+    elif signed <= -threshold:
+        verdict = "regressed"
+    else:
+        verdict = "flat"
+    return {
+        "verdict": verdict,
+        "current": current,
+        "prior": prior,
+        "delta_pct": round(delta * 100, 2),
+    }
 
 
 def apply_min_gate(
