@@ -6,9 +6,10 @@
 Drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
 census, the multi-host program, the serving engine, the migratable
-training job, the warm pool of kernel libraries, the node validator and the
-partition acceptance, the way the validator and the migration drain run
-them, and holds every kernel on those paths
+training job, the warm pool of kernel libraries, the node validator, the
+partition acceptance and the validator's multi-host branch, the way the
+validator and the migration drain run them, and holds every kernel on those
+paths
 against its plain PyTorch version.  Phases, each fatal on failure:
 
 1. device    — a CUDA card must be visible (no CPU fallback); prints its
@@ -103,7 +104,21 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    the cards each (CUDA_VISIBLE_DEVICES), each burn-in exactly equal to its
    solo run, the trajectories independent, each unit seeing its own cards;
    on one card one unit, solo against the barrier run
-14. kernel   — each kernel against its plain version on the card: the add
+14. slice    — the validator's multi-host branch: on 2 or more cards the
+   validators of a two-host slice (worker 0 and 1, half the cards each by
+   CUDA_VISIBLE_DEVICES) run jax, then perf, at once in one event loop
+   against a dict-backed stand-in apiserver whose kubelet runs each
+   rendezvous pod's own command (``workloads.distributed``) with its env,
+   the coordinator at a localhost port: jax-ready ``multi-host`` with
+   workers 2 and each host's worker id, every pod's NCCL allreduce gated at
+   the floor derived from the NIC rate and cleared, the pods collected,
+   the Service's tombstone the payload's epoch, perf's slice-member skip;
+   on 4 or more cards also a multislice of two slices of two one-card
+   hosts (the cross-slice payload with workers 4, its ``multislice``
+   drop-box, its pods at the cross-slice floor); on one card one line says
+   why nothing runs (NCCL refuses two ranks on one card); prints each
+   validator's wall and each pod's elapsed_s
+15. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -138,7 +153,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    Tq 136 x Tk 200 at D 64, rows that see no key and BH 1: out within 1e-4
    of max |plain|, lse within 1e-5, blind rows exactly 0 and -1e30, each
    case launched twice and bit-identical
-15. timing   — CUDA-event medians of each kernel, its plain version and the
+16. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -996,6 +1011,368 @@ def partition_phase(n_cards: int, root: str) -> dict:
     return r
 
 
+class _StandInApi:
+    """A dict-backed stand-in for the port's ``ApiClient`` (no apiserver on
+    the card's machine): get, list_items (``k=v`` label selectors), create,
+    a merge patch and delete on Pods, Services and Nodes, with the port's
+    ``ApiError`` for not-found and already-exists.  A created Pod goes to
+    ``kubelet``; a deleted one's process is killed."""
+
+    def __init__(self, kubelet):
+        self.objects: dict = {}  # (kind, namespace, name) -> object
+        self.kubelet = kubelet
+        self._uids = 0
+
+    @staticmethod
+    def _key(kind: str, name: str, namespace) -> tuple:
+        return kind, namespace or "", name
+
+    def _missing(self, kind: str, name: str):
+        from tpu_operator_torch.k8s.client import ApiError
+
+        return ApiError(404, "NotFound", {"message": f"{kind} {name} not found"})
+
+    def put(self, obj: dict) -> None:
+        meta = obj["metadata"]
+        self.objects[self._key(obj["kind"], meta["name"], meta.get("namespace"))] = obj
+
+    async def get(self, group: str, kind: str, name: str, namespace=None) -> dict:
+        import copy
+
+        try:
+            return copy.deepcopy(self.objects[self._key(kind, name, namespace)])
+        except KeyError:
+            raise self._missing(kind, name) from None
+
+    async def list_items(self, group: str, kind: str, namespace=None,
+                         label_selector=None) -> list:
+        import copy
+
+        want = dict(kv.split("=", 1) for kv in label_selector.split(",")) if label_selector \
+            else {}
+        out = []
+        for (k, ns, _), obj in sorted(self.objects.items()):
+            labels = obj["metadata"].get("labels") or {}
+            if (k == kind and (namespace is None or ns == namespace)
+                    and all(labels.get(a) == b for a, b in want.items())):
+                out.append(copy.deepcopy(obj))
+        return out
+
+    async def create(self, obj: dict) -> dict:
+        import copy
+
+        from tpu_operator_torch.k8s.client import ApiError
+
+        meta = obj["metadata"]
+        key = self._key(obj["kind"], meta["name"], meta.get("namespace"))
+        if key in self.objects:
+            raise ApiError(409, "AlreadyExists", {"message": f"{meta['name']} exists"})
+        obj = copy.deepcopy(obj)
+        self._uids += 1
+        obj["metadata"]["uid"] = f"uid-{self._uids}"
+        self.objects[key] = obj
+        if obj["kind"] == "Pod":
+            obj["status"] = {"phase": "Pending"}
+            self.kubelet.start(self, key, copy.deepcopy(obj))
+        return copy.deepcopy(obj)
+
+    async def patch(self, group: str, kind: str, name: str, patch: dict, namespace=None):
+        import copy
+
+        def merge(into: dict, change: dict) -> None:
+            for k, v in change.items():
+                if v is None:
+                    into.pop(k, None)
+                elif isinstance(v, dict) and isinstance(into.get(k), dict):
+                    merge(into[k], v)
+                else:
+                    into[k] = copy.deepcopy(v)
+
+        obj = self.objects.get(self._key(kind, name, namespace))
+        if obj is None:
+            raise self._missing(kind, name)
+        merge(obj, patch)
+        return copy.deepcopy(obj)
+
+    async def delete(self, group: str, kind: str, name: str, namespace=None,
+                     ignore_not_found: bool = True):
+        obj = self.objects.pop(self._key(kind, name, namespace), None)
+        if obj is None:
+            if ignore_not_found:
+                return None
+            raise self._missing(kind, name)
+        if kind == "Pod":
+            self.kubelet.stop(obj["metadata"]["uid"])
+        return obj
+
+
+class _StandInKubelet:
+    """Runs each created pod's own command with its own env, as a kubelet
+    would: the coordinator's DNS name rewritten to a localhost port per pod
+    ``subdomain`` (one per rendezvous), the node's cards visible through
+    CUDA_VISIBLE_DEVICES, the hostPaths under ``root``; the pod's phase
+    from the exit code.  ``runs`` keeps (pod, node, rc, elapsed_s, result)."""
+
+    def __init__(self, root: str, cards_of: dict, timeout: float = 400.0):
+        self.root, self.cards_of, self.timeout = root, cards_of, timeout
+        self.ports: dict = {}
+        self.procs: dict = {}
+        self.tasks: set = set()
+        self.runs: list = []
+
+    def _port(self, subdomain: str) -> int:
+        from tpu_operator_torch.workloads.distributed import free_ports
+
+        if subdomain not in self.ports:
+            port = free_ports(1)[0]
+            while port in self.ports.values():
+                port = free_ports(1)[0]
+            self.ports[subdomain] = port
+        return self.ports[subdomain]
+
+    def start(self, api: _StandInApi, key: tuple, pod: dict) -> None:
+        import asyncio
+
+        task = asyncio.get_running_loop().create_task(self._run(api, key, pod))
+        self.tasks.add(task)
+        task.add_done_callback(self.tasks.discard)
+
+    def stop(self, uid: str) -> None:
+        proc = self.procs.get(uid)
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+
+    async def _run(self, api: _StandInApi, key: tuple, pod: dict) -> None:
+        import asyncio
+
+        uid = pod["metadata"]["uid"]
+        api.objects[key]["status"] = {"phase": "Running"}
+        # the port is taken here, on the loop's thread; the pod runs on a
+        # thread of its own, as a kubelet's container runs apart from it
+        port = self._port(pod["spec"]["subdomain"])
+        run = await asyncio.get_running_loop().run_in_executor(None, self._exec, pod, port)
+        self.runs.append(run)
+        r = run["result"]
+        print(f"slice: pod {run['pod']} on {run['node']} rc={run['rc']} elapsed_s "
+              f"{run['elapsed_s']!r} time_s {r.get('time_s')!r} allreduce "
+              f"{json.dumps(r.get('allreduce'))}", flush=True)
+        if run["rc"] != 0:
+            print(f"slice: pod {run['pod']} stdout {run['stdout_tail']} stderr "
+                  f"{run['stderr_tail']}", flush=True)
+        live = api.objects.get(key)
+        if live is not None and live["metadata"]["uid"] == uid:
+            live["status"] = {"phase": "Succeeded" if run["rc"] == 0 else "Failed"}
+
+    def _exec(self, pod: dict, port: int) -> dict:
+        from tpu_operator_torch import consts
+
+        name, node = pod["metadata"]["name"], pod["spec"]["nodeName"]
+        ctr = pod["spec"]["containers"][0]
+        cache = os.path.join(self.root, "compile_cache")
+        env = {e["name"]: e["value"].replace(consts.COMPILE_CACHE_DIR, cache)
+               for e in ctr["env"]}
+        env["COORDINATOR_ADDRESS"] = f"127.0.0.1:{port}"
+        proc_env = _subprocess_env(self.root, **env, CUDA_VISIBLE_DEVICES=",".join(
+            str(c) for c in self.cards_of[node]))
+        for var in ("TORCH_DEVICE", "DIST_CPU_RANKS", "TPU_HW_ROOT", "LIBCUDA_PATH"):
+            proc_env.pop(var, None)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, *ctr["command"][1:]], env=proc_env,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.procs[pod["metadata"]["uid"]] = proc
+        try:
+            out, err = proc.communicate(timeout=self.timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        lines = [line for line in out.splitlines() if line.startswith("{")]
+        return {"pod": name, "node": node, "rc": proc.returncode,
+                "elapsed_s": time.perf_counter() - t0,
+                "result": json.loads(lines[-1]) if lines else {},
+                "stdout_tail": out[-1500:], "stderr_tail": err[-1500:]}
+
+    async def close(self) -> None:
+        import asyncio
+
+        for proc in self.procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        if self.tasks:
+            await asyncio.gather(*self.tasks, return_exceptions=True)
+
+
+def _slice_node(name: str, pool: str, wid: int, cards: int, product: str, group: str = "",
+                slices: int = 0) -> dict:
+    """A host of a 2-host slice in the reference's identity (a v5e podslice
+    2x4: 4 chips a host, 2 hosts), the card's product label and ``cards``
+    of nvidia.com/gpu."""
+    from tpu_operator_torch import consts
+
+    labels = {consts.GKE_TPU_ACCELERATOR_LABEL: "tpu-v5-lite-podslice",
+              consts.GKE_TPU_TOPOLOGY_LABEL: "2x4", consts.GKE_NODEPOOL_LABEL: pool,
+              consts.GKE_TPU_WORKER_ID_LABEL: str(wid), consts.GPU_PRODUCT_LABEL: product}
+    if group:
+        labels.update({consts.MULTISLICE_GROUP_LABEL: group,
+                       consts.MULTISLICE_SLICES_LABEL: str(slices)})
+    return {"apiVersion": "v1", "kind": "Node",
+            "metadata": {"name": name, "labels": labels},
+            "status": {"allocatable": {consts.GPU_RESOURCE: str(cards)}}}
+
+
+def _run_slice(root: str, hosts: dict, name: str, multislice: bool) -> dict:
+    """Validators of every host in ``hosts`` ({node: (pool, worker id,
+    cards)}) run ``jax`` and then ``perf`` at once in one event loop against
+    the stand-in apiserver and kubelet.  Returns the jax-ready payloads,
+    the pods' runs, the walls and the stand-in's objects."""
+    import asyncio
+
+    from tpu_operator_torch.validator import components, status
+
+    product = name.replace(" ", "-")
+    kubelet = _StandInKubelet(root, {n: cards for n, (_, _, cards) in hosts.items()})
+    api = _StandInApi(kubelet)
+    for node, (pool, wid, cards) in hosts.items():
+        api.put(_slice_node(node, pool, wid, len(cards), product,
+                            group="h100-multislice" if multislice else "", slices=2))
+    written = {"jax": [], "perf": []}
+    write = status.write_ready
+
+    def record(component, payload=None):
+        if component in written:
+            written[component].append(dict(payload or {}))
+        return write(component, payload)
+
+    validators = [components.Validator(components.ValidatorConfig(
+        node_name=node, namespace="tpu-operator", with_workload=True, platform="cuda",
+        sleep_interval=0.2, workload_retries=2000, resource_retries=5), client=api)
+        for node in hosts]
+    walls = {}
+
+    async def timed(v, component):
+        t0 = time.perf_counter()
+        await v.run(component)
+        walls[(v.config.node_name, component)] = time.perf_counter() - t0
+
+    async def drive():
+        try:
+            await asyncio.wait_for(asyncio.gather(*(timed(v, "jax") for v in validators)), 900)
+            await asyncio.gather(*(timed(v, "perf") for v in validators))
+        finally:
+            await kubelet.close()
+
+    os.environ["TPU_VALIDATION_ROOT"] = root
+    status.write_ready("plugin")
+    status.write_ready = record
+    try:
+        asyncio.run(drive())
+    finally:
+        status.write_ready = write
+    for (node, component), wall in sorted(walls.items()):
+        print(f"slice: validator {node} {component} wall {wall:.2f}s", flush=True)
+    return {"jax": written["jax"], "perf": written["perf"], "runs": kubelet.runs,
+            "walls": walls, "objects": api.objects}
+
+
+def _check_slice_run(out: dict, hosts: dict, floors: dict) -> None:
+    """Every pod succeeded with its NCCL allreduce gated and at or above
+    its rendezvous' floor ({pod name prefix: floor}); the pods are collected
+    and each Service holds its tombstone."""
+    from tpu_operator_torch.validator import components
+
+    require(out["runs"] and all(run["rc"] == 0 for run in out["runs"]),
+            f"a rendezvous pod failed: {[(r['pod'], r['rc']) for r in out['runs']]}")
+    for run in out["runs"]:
+        r = run["result"]
+        floor = next(f for prefix, f in floors.items() if run["pod"].startswith(prefix))
+        allreduce = r.get("allreduce") or {}
+        require(r.get("ok") and r["psum"]["ok"] and r["backend"] == "cuda",
+                f"pod {run['pod']}: {r}")
+        require(allreduce.get("gated") and allreduce["min_gbps"] == floor
+                and allreduce["busbw_gbps"] >= floor,
+                f"pod {run['pod']}: allreduce {allreduce} against the floor {floor}")
+    pods = [key for key in out["objects"] if key[0] == "Pod"]
+    require(not pods, f"rendezvous pods left after the proof: {pods}")
+    services = {key[2]: obj for key, obj in out["objects"].items() if key[0] == "Service"}
+    for svc, obj in services.items():
+        require(obj["spec"]["clusterIP"] == "None"
+                and obj["metadata"]["annotations"].get(components.VALIDATED_EPOCH_ANNOTATION),
+                f"Service {svc} without its tombstone: {obj}")
+    pools = {pool for pool, _, _ in hosts.values()}
+    for payload in out["perf"]:
+        require(payload["ok"] is True and payload["slice"] in pools and "skipped" in payload,
+                f"perf on a slice member: {payload}")
+    require(len(out["perf"]) == len(hosts), f"perf-ready written {len(out['perf'])} times")
+
+
+def slice_phase(n_cards: int, root: str, name: str) -> dict:
+    """The validator's multi-host branch on the cards: the validators of a
+    two-host slice (worker 0 and 1, each host half the cards) run at once
+    against the stand-in apiserver and kubelet, then ``perf`` on each; on 4
+    or more cards also a multislice of two slices of two one-card hosts.
+    Requires jax-ready ``multi-host`` with ``workers`` 2 and each host's
+    worker id, every pod's NCCL allreduce gated at the floor derived from the
+    NIC rate and cleared, the pods collected, each Service's tombstone the
+    payload's epoch, and perf's slice-member skip; the multislice adds the
+    cross-slice payload (``workers`` 4) and its ``multislice`` drop-box.
+    One card cannot place two hosts (NCCL refuses two ranks on one card)."""
+    from tpu_operator_torch.k8s import nodeinfo
+    from tpu_operator_torch.validator import components, status
+
+    if n_cards < 2:
+        print("slice: one card: a two-host slice cannot be placed (NCCL refuses two "
+              "ranks on one card); the phase runs on 2 or more cards", flush=True)
+        return {}
+    generation = nodeinfo.generation_of(name)
+    per = n_cards // 2
+    hosts = {f"h100-{w}": ("h100-slice", w, list(range(w * per, (w + 1) * per)))
+             for w in range(2)}
+    floor = components._slice_min_gbps(generation, 2 * per)
+    os.makedirs(os.path.join(root, "slice"))
+    t0 = time.perf_counter()
+    out = _run_slice(os.path.join(root, "slice"), hosts, name, multislice=False)
+    wall = time.perf_counter() - t0
+    require(sorted(p["worker_id"] for p in out["jax"]) == [0, 1],
+            f"jax-ready payloads {out['jax']}")
+    for payload in out["jax"]:
+        require(payload["mode"] == "multi-host" and payload["workers"] == 2
+                and payload["group"] == "h100-slice", f"jax-ready {payload}")
+    svc = out["objects"][("Service", "tpu-operator", "tpu-jax-validation-h100-slice")]
+    require(svc["metadata"]["annotations"][components.VALIDATED_EPOCH_ANNOTATION]
+            == out["jax"][0]["epoch"], f"tombstone {svc['metadata']}")
+    _check_slice_run(out, hosts, {"tpu-jax-validation": floor})
+    print(f"slice: 2 hosts x {per} card(s) validated in {wall:.2f}s wall, floor {floor!r} "
+          f"GB/s from the NIC rate ({generation})", flush=True)
+    result = {"wall_s": wall, "floor": floor}
+    if n_cards < 4:
+        print("slice: the multislice needs 4 cards (two slices of two one-card hosts)",
+              flush=True)
+        return result
+    hosts = {f"h100-{pool[-1]}{w}": (pool, w, [2 * i + w])
+             for i, pool in enumerate(("h100-slice-a", "h100-slice-b")) for w in range(2)}
+    ms_floor = components._multislice_min_gbps(generation)
+    slice_floor = components._slice_min_gbps(generation, 2)
+    os.makedirs(os.path.join(root, "multislice"))
+    t0 = time.perf_counter()
+    out = _run_slice(os.path.join(root, "multislice"), hosts, name, multislice=True)
+    ms_wall = time.perf_counter() - t0
+    require(len(out["jax"]) == 4, f"jax-ready written {len(out['jax'])} times")
+    for payload in out["jax"]:
+        ms = payload.get("multislice") or {}
+        require(payload["mode"] == "multi-host" and payload["workers"] == 2
+                and ms.get("workers") == 4 and ms.get("group") == "h100-multislice",
+                f"jax-ready {payload}")
+    require(sorted(p["multislice"]["worker_id"] for p in out["jax"]) == [0, 1, 2, 3],
+            f"global ids {[p['multislice'] for p in out['jax']]}")
+    ms_dropbox = (status.read_workload_results(scope="multislice") or {}).get("distributed") or {}
+    require(ms_dropbox.get("ok") and ms_dropbox["num_processes"] == 4,
+            f"the multislice drop-box {ms_dropbox}")
+    _check_slice_run(out, hosts, {"tpu-jax-validation": slice_floor,
+                                  components.MULTISLICE_BASE: ms_floor})
+    print(f"slice: multislice of 2 slices x 2 one-card hosts validated in {ms_wall:.2f}s "
+          f"wall, slice floor {slice_floor!r}, cross-slice floor {ms_floor!r} GB/s", flush=True)
+    return {**result, "multislice_wall_s": ms_wall}
+
+
 def kernel_phase() -> float:
     """Bit-for-bit parity of the vector add with its plain version, in f32,
     bf16 and f16 (compared as int32 or int16 views, tolerance 0)."""
@@ -1813,6 +2190,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip-smoke-validator-") as root:
         validator = validator_phase(count, os.path.join(root, "validator"), name)
         partition_phase(count, os.path.join(root, "partition"))
+        slice_phase(count, root, name)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
     f32_err = f32_kernel_phase()

@@ -369,6 +369,49 @@ async def test_client_against_the_fake_apiserver():
             assert err.value.not_found
 
 
+async def test_client_merge_patch_against_the_fake_apiserver():
+    """A merge patch adds the keys it names and leaves the rest, as the
+    Service's epoch tombstone needs; a patch of a missing object is a 404."""
+    async with FakeCluster(SimConfig(enabled=False)) as fc:
+        async with ApiClient(Config(base_url=fc.base_url)) as client:
+            await client.create({"apiVersion": "v1", "kind": "Service", "metadata": {
+                "name": "svc", "namespace": NS, "labels": {"app": "a"},
+                "annotations": {"keep": "1"}}, "spec": {"clusterIP": "None"}})
+            patched = await client.patch(
+                "", "Service", "svc", {"metadata": {"annotations": {"epoch": "e1"}}}, NS)
+            assert patched["metadata"]["annotations"] == {"keep": "1", "epoch": "e1"}
+            svc = await client.get("", "Service", "svc", NS)
+            assert svc["metadata"]["annotations"] == {"keep": "1", "epoch": "e1"}
+            assert svc["metadata"]["labels"] == {"app": "a"}
+            assert svc["spec"]["clusterIP"] == "None"
+            await client.patch("", "Service", "svc",
+                               {"metadata": {"annotations": {"keep": None}}}, NS)
+            svc = await client.get("", "Service", "svc", NS)
+            assert svc["metadata"]["annotations"] == {"epoch": "e1"}
+            with pytest.raises(ApiError) as err:
+                await client.patch("", "Service", "gone", {"metadata": {}}, NS)
+            assert err.value.not_found
+
+
+async def test_client_lists_by_label_selector():
+    """``label_selector`` reaches the apiserver: only the matching pods come
+    back, and the reference's client lists the same ones."""
+    async with FakeCluster(SimConfig(enabled=False)) as fc:
+        for name, app in (("runtime-a", "tpu-runtime"), ("runtime-b", "tpu-runtime"),
+                          ("other", "x")):
+            fc.put({"apiVersion": "v1", "kind": "Pod",
+                    "metadata": {"name": name, "namespace": NS, "labels": {"app": app}},
+                    "spec": {"containers": [{"name": "c"}]}})
+        async with ApiClient(Config(base_url=fc.base_url)) as client, \
+                JApiClient(JConfig(base_url=fc.base_url)) as jclient:
+            mine = await client.list_items("", "Pod", NS, label_selector="app=tpu-runtime")
+            ref = await jclient.list_items("", "Pod", NS, label_selector="app=tpu-runtime")
+            assert sorted(p["metadata"]["name"] for p in mine) == ["runtime-a", "runtime-b"]
+            assert [p["metadata"]["name"] for p in mine] == [p["metadata"]["name"] for p in ref]
+            assert len(await client.list_items("", "Pod", NS)) == 3
+            assert await client.list_items("", "Pod", NS, label_selector="app=none") == []
+
+
 async def test_plugin_validation_polls_the_gpu_resource(validation_root):
     async with FakeCluster(SimConfig(enabled=False)) as fc:
         node = fc.add_node("gpu-node-0", tpu=False)
@@ -564,23 +607,6 @@ async def test_perf_pod_failure_is_report_only(validation_root):
     payload = status.read_status("perf")
     assert payload["ok"] is False and "tpu-perf-probes" in payload["error"]
     assert payload["checks"] == {} and status.read_workload_results("perf") is None
-
-
-@pytest.mark.parametrize("component", ["jax", "perf"])
-async def test_slice_member_is_refused(validation_root, component):
-    """A member of a multi-host slice raises: it is never gated node-locally."""
-    async with FakeCluster(SimConfig(enabled=False)) as fc:
-        _gpu_node(fc, **{consts.GKE_TPU_ACCELERATOR_LABEL: "tpu-v5-lite-podslice",
-                         consts.GKE_TPU_TOPOLOGY_LABEL: "4x4",
-                         consts.GKE_NODEPOOL_LABEL: "pool-a"})
-        async with ApiClient(Config(base_url=fc.base_url)) as client:
-            status.write_ready("plugin")
-            status.write_ready("jax")
-            v = Validator(fast_config(with_workload=True), client=client)
-            with pytest.raises(ValidationError, match="pool-a.*not ported"):
-                await v.run(component)
-            assert await client.list_items("", "Pod", NS) == []
-    assert not status.is_ready(component)
 
 
 async def test_perf_regression_posts_a_warning_event(validation_root):

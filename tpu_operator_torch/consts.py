@@ -52,8 +52,17 @@ EVENT_TRACE_ID_ANNOTATION = "tpu.google.com/trace-id"
 GPU_RESOURCE = "nvidia.com/gpu"
 GPU_PRODUCT_LABEL = "nvidia.com/gpu.product"
 
-# GKE node labels the reference keys a multi-host slice on (a node carrying
-# them is a slice member, whose validation the port does not run yet)
+# A multi-host slice keeps the reference's identity, so the unchanged
+# operator's slice scheduler, its slice readiness labels and feature
+# discovery name the same slices: the GKE nodepool, topology and
+# accelerator labels, the host's worker id (feature discovery's label, else
+# GKE's), the multislice group a deployment declares with its slice count,
+# and the runtime version label a validation epoch hashes.
 GKE_TPU_ACCELERATOR_LABEL = "cloud.google.com/gke-tpu-accelerator"
 GKE_TPU_TOPOLOGY_LABEL = "cloud.google.com/gke-tpu-topology"
 GKE_NODEPOOL_LABEL = "cloud.google.com/gke-nodepool"
+GKE_TPU_WORKER_ID_LABEL = "cloud.google.com/gke-tpu-worker-id"
+TFD_SLICE_WORKER_ID_LABEL = "tpu.google.com/tpu.slice.worker-id"
+TFD_RUNTIME_VERSION_LABEL = "tpu.google.com/tpu.runtime.version"
+MULTISLICE_GROUP_LABEL = "tpu.google.com/multislice-group"
+MULTISLICE_SLICES_LABEL = "tpu.google.com/multislice-slices"

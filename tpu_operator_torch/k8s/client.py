@@ -1,6 +1,7 @@
 """Async Kubernetes REST client: own copy of the part of
 ``tpu_operator/k8s/client.py`` the node validator uses (get, create,
-delete, list; in-cluster config from the service account), plus
+delete, a merge patch, list with a label selector; in-cluster config from
+the service account), plus
 ``set_owner_reference`` from ``tpu_operator/k8s/objects.py``.
 
 ``aiohttp`` is imported when the first session opens, so a validator
@@ -23,12 +24,14 @@ SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
 _RESOURCES = {
     ("", "Node"): ("v1", "nodes", False),
     ("", "Pod"): ("v1", "pods", True),
+    ("", "Service"): ("v1", "services", True),
     ("", "Event"): ("v1", "events", True),
     ("apps", "DaemonSet"): ("v1", "daemonsets", True),
 }
 
-# a GET or DELETE that meets a 5xx, a 429 or a dropped connection is tried
-# this many times in all, the waits doubling from the first
+# a GET, DELETE or merge PATCH (each idempotent) that meets a 5xx, a 429 or
+# a dropped connection is tried this many times in all, the waits doubling
+# from the first
 _ATTEMPTS = 3
 _FIRST_BACKOFF_S = 0.2
 _REQUEST_TIMEOUT_S = 30.0
@@ -157,21 +160,25 @@ class ApiClient:
             await self._session.close()
         self._session = None
 
-    async def _request(self, method: str, path: str, body: Any = None) -> Any:
-        """One request; GET and DELETE are retried on transient failures
-        (POST never is: a lost response may hide a created object)."""
+    async def _request(self, method: str, path: str, body: Any = None,
+                       params: Optional[dict] = None,
+                       content_type: str = "application/json") -> Any:
+        """One request; GET, DELETE and PATCH are retried on transient
+        failures (POST never is: a lost response may hide a created
+        object)."""
         import aiohttp
 
         data = json.dumps(body).encode() if body is not None else None
-        headers = {"Content-Type": "application/json"} if body is not None else {}
-        attempts = _ATTEMPTS if method in ("GET", "DELETE") else 1
+        headers = {"Content-Type": content_type} if body is not None else {}
+        attempts = _ATTEMPTS if method in ("GET", "DELETE", "PATCH") else 1
         attempt = 0
         while True:
             attempt += 1
             retry = attempt < attempts
             try:
                 sess = await self.session()
-                async with sess.request(method, path, data=data, headers=headers) as resp:
+                async with sess.request(method, path, params=params, data=data,
+                                        headers=headers) as resp:
                     text = await resp.text()
                     try:
                         payload = json.loads(text) if text else None
@@ -192,15 +199,24 @@ class ApiClient:
     async def get(self, group: str, kind: str, name: str, namespace: Optional[str] = None) -> dict:
         return await self._request("GET", resource_path(group, kind, namespace, name))
 
-    async def list_items(self, group: str, kind: str,
-                         namespace: Optional[str] = None) -> list[dict]:
-        listing = await self._request("GET", resource_path(group, kind, namespace))
+    async def list_items(self, group: str, kind: str, namespace: Optional[str] = None,
+                         label_selector: Optional[str] = None) -> list[dict]:
+        params = {"labelSelector": label_selector} if label_selector else None
+        listing = await self._request("GET", resource_path(group, kind, namespace),
+                                      params=params)
         return (listing or {}).get("items", [])
 
     async def create(self, obj: dict) -> dict:
         meta = obj.get("metadata", {})
         path = resource_path(_group_of(obj), obj.get("kind", ""), meta.get("namespace"))
         return await self._request("POST", path, body=obj)
+
+    async def patch(self, group: str, kind: str, name: str, patch: Any,
+                    namespace: Optional[str] = None) -> dict:
+        """A JSON merge patch (RFC 7386): the keys given replace the
+        object's, a null deletes one."""
+        return await self._request("PATCH", resource_path(group, kind, namespace, name),
+                                   body=patch, content_type="application/merge-patch+json")
 
     async def delete(self, group: str, kind: str, name: str, namespace: Optional[str] = None,
                      ignore_not_found: bool = True) -> Optional[dict]:

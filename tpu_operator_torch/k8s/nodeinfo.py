@@ -29,7 +29,21 @@ figures:
 - ``nic_gbps``: the host's NIC line rate for traffic between hosts, of the
   smallest common host shape of the part (H100 SXM: four 200 Gb/s GPU NICs,
   100 GB/s; H200: eight 400 Gb/s, 400 GB/s; the PCIe and NVL parts: one
-  200 Gb/s, 25 GB/s): the ceiling the cross-host floor derives from.
+  200 Gb/s, 25 GB/s), one direction, as line rates are stated: the ceiling
+  the floors between hosts derive from.
+- The slice floor.  An H100 SXM NVLink domain is one host of 8 cards, so
+  the hosts of a multi-host slice talk through their NICs, and a slice's
+  allreduce is held to the NIC rate, not NVLink.  NCCL's ring runs c
+  channels, each leaving every host by one edge that carries 2(n-1)/n·S/c
+  bytes; all c leave through the host's NICs, so t >= 2(n-1)/n·S/nic_gbps
+  and NCCL-tests' busbw across hosts is at most nic_gbps.  In the port's
+  convention the ceiling is n·nic_gbps, n the slice's cards in all (hosts
+  x cards per host), and the floor is the reference's slice fraction of
+  it, ``ALLREDUCE_GATE_FRACTION``·n·nic_gbps (two H100 SXM hosts of 8
+  cards: 0.25 x 16 x 100 = 400 GB/s).  The cross-slice floor
+  (``_multislice_min_gbps``, ``DCN_GATE_FRACTION``·nic_gbps, the
+  reference's rule) has no n: it is 0.1/n of the same ceiling, so the
+  slice does not reuse it, and only the cross-slice run keeps it.
 """
 
 from __future__ import annotations
@@ -115,28 +129,90 @@ def generation_of_node(node: dict) -> str:
     return generation_of(_labels(node).get(consts.GPU_PRODUCT_LABEL, "").replace("-", " "))
 
 
-# The reference's multi-host slice predicate (``controllers.labels.
+# The reference's multi-host slice identity (``controllers.labels.
 # slice_group_key`` over ``k8s/nodeinfo.py``): a node whose GKE TPU labels
 # say its slice spans more than one host.  Chips per host by accelerator
 # label, 4 for a label the reference does not know.
 _TPU_CHIPS_PER_HOST = {"tpu-v5-lite-device": 8, "tpu-v6e-device": 8}
 
 
+def _chips_per_host(labels: dict) -> int:
+    """The reference's ``chips_per_host``: the accelerator's default, cut
+    to the topology's chips for a single-host (at most 2-D) shape."""
+    base = _TPU_CHIPS_PER_HOST.get(labels.get(consts.GKE_TPU_ACCELERATOR_LABEL, ""), 4)
+    topology = labels.get(consts.GKE_TPU_TOPOLOGY_LABEL)
+    if topology:
+        try:
+            if len(parse_topology(topology)) <= 2:
+                return min(base, topology_chips(topology))
+        except ValueError:
+            pass
+    return base
+
+
+def slice_hosts(node: dict) -> int:
+    """Hosts forming this node's slice (topology chips / chips per host)."""
+    labels = _labels(node)
+    topology = labels.get(consts.GKE_TPU_TOPOLOGY_LABEL, "")
+    if not topology:
+        return 1
+    try:
+        return max(1, topology_chips(topology) // max(1, _chips_per_host(labels)))
+    except ValueError:
+        return 1
+
+
 def slice_group_key(node: dict) -> str:
     """The node's multi-host slice (its nodepool) when the reference's
-    validator would validate it as a slice member; "" otherwise."""
+    validator would validate it as a slice member; "" otherwise, and ""
+    without a nodepool label (two slices must never merge into one)."""
     labels = _labels(node)
-    accelerator = labels.get(consts.GKE_TPU_ACCELERATOR_LABEL, "")
-    topology = labels.get(consts.GKE_TPU_TOPOLOGY_LABEL, "")
-    if not accelerator or not topology:
+    if not labels.get(consts.GKE_TPU_ACCELERATOR_LABEL) or not labels.get(
+            consts.GKE_TPU_TOPOLOGY_LABEL):
         return ""
-    try:
-        chips = topology_chips(topology)
-        per_host = _TPU_CHIPS_PER_HOST.get(accelerator, 4)
-        if len(parse_topology(topology)) <= 2:
-            per_host = min(per_host, chips)
-    except ValueError:
-        return ""
-    if chips // max(1, per_host) <= 1:
+    if slice_hosts(node) <= 1:
         return ""
     return labels.get(consts.GKE_NODEPOOL_LABEL, "")
+
+
+def node_name(node: dict) -> str:
+    return (node.get("metadata") or {}).get("name", "")
+
+
+def worker_id(node: dict) -> str:
+    """The host's slice worker id label, feature discovery's before GKE's;
+    "" when neither is set."""
+    labels = _labels(node)
+    return str(labels.get(consts.TFD_SLICE_WORKER_ID_LABEL)
+               or labels.get(consts.GKE_TPU_WORKER_ID_LABEL, ""))
+
+
+def runtime_version(node: dict) -> str:
+    """The runtime version label feature discovery reports ("" if none)."""
+    return _labels(node).get(consts.TFD_RUNTIME_VERSION_LABEL, "")
+
+
+class NodeFilter:
+    """The part of the reference's node predicate the slice branch uses:
+    label equalities and the accelerator label's presence, applied to a
+    node list."""
+
+    def __init__(self) -> None:
+        self._eq: dict[str, str] = {}
+        self._exists: list[str] = []
+
+    def eq(self, key: str, value: str) -> "NodeFilter":
+        self._eq[key] = value
+        return self
+
+    def tpu(self) -> "NodeFilter":
+        """Nodes carrying the GKE accelerator label: the slice identity's."""
+        self._exists.append(consts.GKE_TPU_ACCELERATOR_LABEL)
+        return self
+
+    def apply(self, nodes) -> list[dict]:
+        def matches(labels: dict) -> bool:
+            return (all(labels.get(k) == v for k, v in self._eq.items())
+                    and all(k in labels for k in self._exists))
+
+        return [n for n in nodes if matches(_labels(n))]

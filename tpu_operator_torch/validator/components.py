@@ -21,8 +21,15 @@ read what this validator writes.  What changes is the hardware truth:
   perf     — the post-ready probes, report-only
   vfio-pci — passthrough chain: vfio group device nodes present
 
-A member of a multi-host slice is refused: its validation is one program
-across every host of the slice, which the port does not run yet.
+A member of a multi-host slice keeps the reference's slice identity (the
+GKE nodepool, topology and accelerator labels, the worker-id labels), so
+the unchanged operator names the same slices.  Its gate is one program
+across every host of the slice: a headless Service and one pod per host,
+pinned to it, running ``tpu_operator_torch.workloads.distributed`` (one
+rank per card, NCCL between the hosts), its evidence keyed to a validation
+epoch; a declared multislice group adds one such run across its slices.
+The hosts talk through their NICs, so the floors there derive from the
+host NIC rate (``k8s/nodeinfo.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import asyncio
 import calendar
 import copy
 import functools
+import hashlib
+import json
 import logging
 import os
 import time
@@ -45,12 +54,20 @@ from tpu_operator_torch.validator import status
 log = logging.getLogger("tpu_operator_torch.validator")
 
 WORKLOAD_COMMAND = ["python", "-m", "tpu_operator_torch.workloads.run_validation"]
+DISTRIBUTED_COMMAND = ["python", "-m", "tpu_operator_torch.workloads.distributed"]
+COORDINATOR_PORT = 8476  # the rendezvous store (worker 0's pod)
+EPOCH_LABEL = "tpu.google.com/validation-epoch"
+# distinct name base for the cross-slice rendezvous: a nodepool whose name
+# happens to match a prefixed group key must never share Service or pod
+# names (and so epoch tombstones) with it
+MULTISLICE_BASE = "tpu-ms-validation"
+VALIDATED_EPOCH_ANNOTATION = "tpu.google.com/validated-epoch"
 
 # Fractions of the card's data-sheet NVLink figures the gates require
 # (``k8s/nodeinfo.py`` derives the ceilings): the reference's values.
 ALLREDUCE_GATE_FRACTION = 0.25
 RING_GATE_FRACTION = 0.25
-# of the host's NIC line rate, for traffic between hosts
+# of the host's NIC line rate, for traffic between the slices of a multislice
 DCN_GATE_FRACTION = 0.1
 
 
@@ -92,10 +109,24 @@ def _allreduce_min_gbps(generation: str, cards: int) -> float:
     )
 
 
+def _slice_min_gbps(generation: str, cards: int) -> float:
+    """The armed allreduce gate of a multi-host slice of ``cards`` cards in
+    all: the reference's slice fraction of ``cards`` x the host NIC rate,
+    the ceiling of NCCL's ring between hosts in the port's ``busbw_gbps``
+    convention (``k8s/nodeinfo.py`` has the derivation).  ALLREDUCE_MIN_GBPS
+    overrides; an unknown generation keeps it report-only."""
+    from tpu_operator_torch.k8s.nodeinfo import generation_info
+
+    return _env_floor(
+        "ALLREDUCE_MIN_GBPS",
+        lambda: round(generation_info(generation).nic_gbps * cards * ALLREDUCE_GATE_FRACTION, 1),
+    )
+
+
 def _multislice_min_gbps(generation: str = "") -> float:
-    """The floor for an allreduce between hosts, from the catalogue's host
-    NIC rate (unknown generations keep it report-only; MULTISLICE_MIN_GBPS
-    overrides either way)."""
+    """The cross-slice floor, the reference's rule on the catalogue's host
+    NIC rate, with no card count (unknown generations keep it report-only;
+    MULTISLICE_MIN_GBPS overrides either way)."""
     from tpu_operator_torch.k8s.nodeinfo import generation_info
 
     return _env_floor(
@@ -182,6 +213,37 @@ def _regressions_vs_prior(payload: dict, prior: dict) -> list[dict]:
         if verdict is not None and verdict["verdict"] == "regressed":
             out.append({"metric": key, **verdict})
     return out
+
+
+def _worker_id_of(node: dict) -> int:
+    """The node's slice worker id; raises ValidationError on a malformed or
+    missing label (collapsing to 0 would collide with the real worker 0:
+    duplicate pod names, a wrong PROCESS_ID in the rendezvous)."""
+    from tpu_operator_torch.k8s import nodeinfo
+
+    name, raw = nodeinfo.node_name(node), nodeinfo.worker_id(node)
+    if raw == "":
+        raise ValidationError(
+            f"node {name} is in a multi-host slice but has no worker-id label"
+        )
+    try:
+        wid = int(raw)
+    except ValueError:
+        raise ValidationError(
+            f"node {name} has a non-numeric worker-id label {raw!r}"
+        ) from None
+    if wid < 0:
+        raise ValidationError(f"node {name} has negative worker id {wid}")
+    return wid
+
+
+def _allocatable_cards(node: dict) -> int:
+    """The node's allocatable nvidia.com/gpu, at least 1 (unreadable: 1)."""
+    alloc = (node.get("status") or {}).get("allocatable") or {}
+    try:
+        return max(1, int(alloc.get(consts.GPU_RESOURCE, "1")))
+    except ValueError:
+        return 1
 
 
 def _parse_k8s_ts(value: str) -> Optional[float]:
@@ -436,31 +498,19 @@ class Validator:
         raise ValidationError(
             f"node {self.config.node_name} never advertised {consts.GPU_RESOURCE}")
 
-    async def _refuse_slice_member(self) -> None:
-        """Raise on a member of a multi-host slice (a node whose slice spans
-        several hosts): its gate is one program across every host, and a
-        node-local gate in its place would prove the wrong thing."""
-        if not self.config.node_name:
-            return
-        from tpu_operator_torch.k8s import nodeinfo
-
-        node = await self.client().get("", "Node", self.config.node_name)
-        key = nodeinfo.slice_group_key(node)
-        if key:
-            raise ValidationError(
-                f"node {self.config.node_name} is a member of the multi-host slice {key}: "
-                "multi-host slice validation is not ported yet"
-            )
-
     async def validate_jax(self) -> None:
         """The readiness gate over every local card: vector-add, allreduce
-        and, on several cards, the sharded burn-in."""
+        and, on several cards, the sharded burn-in; on a multi-host slice,
+        one program across every host of the slice."""
         await self.wait_ready("plugin", retries=self.config.resource_retries)
         # fresh flight record for this round: recorders append, so the one
         # per-node coordinator clears stale samples before any writer starts
         status.clear_flight_record()
         if self.config.with_workload:
-            await self._refuse_slice_member()
+            group = await self._slice_group()
+            if group is not None:
+                await self.validate_jax_multihost(*group)
+                return
             chips = await self._node_chip_count()
             # several cards: the local allreduce rides NVLink — arm the
             # busbw gate from the catalogue (one card stays report-only)
@@ -544,7 +594,24 @@ class Validator:
         if self.config.with_workload:
             from tpu_operator_torch.k8s import nodeinfo
 
-            await self._refuse_slice_member()
+            group = await self._slice_group()
+            if group is not None:
+                # a slice member's cards are proven only inside the slice's
+                # one program, which measures its allreduce and ring; a
+                # node-local probe pod has no valid run here, so the skip is
+                # recorded.  The node-local drop-box clears too: a node that
+                # ran probes alone and then joined a slice must not keep
+                # exporting stale figures to the alerts
+                status.clear_workload_results(scope="perf")
+                status.clear_flight_record(scope="perf")
+                status.write_ready("perf", {
+                    "ok": True,
+                    "skipped": "multi-host slice member: node-local PJRT "
+                               "init is invalid; slice perf is measured by "
+                               "the coordinated multi-host validation",
+                    "slice": group[0],
+                })
+                return
             chips = await self._node_chip_count()
             node = await self.client().get("", "Node", self.config.node_name)
             generation = nodeinfo.generation_of_node(node)
@@ -686,6 +753,498 @@ class Validator:
         await self._finish_measured("perf", payload, scope="perf")
         status.write_ready("perf", payload)
 
+    # ------------------------------------------------------------------
+    # Multi-host slice validation: one distributed program across hosts.
+
+    async def _slice_group(self) -> Optional[tuple[str, list[dict]]]:
+        """(group key, member nodes ordered by worker id) when this node
+        belongs to a multi-host slice; None otherwise.  Membership is the
+        GKE nodepool (one multi-host slice per pool)."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        if not self.config.node_name:
+            return None
+        client = self.client()
+        node = await client.get("", "Node", self.config.node_name)
+        key = nodeinfo.slice_group_key(node)
+        if not key:
+            return None
+        members = (
+            nodeinfo.NodeFilter()
+            .tpu()
+            .eq(consts.GKE_NODEPOOL_LABEL, key)
+            .apply(await client.list_items("", "Node"))
+        )
+        self._checked_worker_ids(key, members)  # sorts members in place
+        return key, members
+
+    @staticmethod
+    def _checked_worker_ids(key: str, members: list[dict]) -> dict[str, int]:
+        """Validate one slice's worker-id labels (numeric, unique, covering
+        0..N-1, every host present), sort ``members`` by id in place, and
+        return {node name: worker id}."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        ids = {nodeinfo.node_name(m): _worker_id_of(m) for m in members}
+        dupes = {i for i in ids.values() if list(ids.values()).count(i) > 1}
+        if dupes:
+            raise ValidationError(
+                f"slice {key}: duplicate worker ids {sorted(dupes)} across hosts "
+                f"{sorted(n for n, i in ids.items() if i in dupes)}"
+            )
+        members.sort(key=lambda m: ids[nodeinfo.node_name(m)])
+        expected = max(nodeinfo.slice_hosts(m) for m in members)
+        if len(members) < expected:
+            raise ValidationError(
+                f"slice {key}: only {len(members)}/{expected} hosts present"
+            )
+        if sorted(ids.values()) != list(range(len(members))):
+            raise ValidationError(
+                f"slice {key}: worker ids {sorted(ids.values())} do not cover "
+                f"0..{len(members) - 1}; check the worker-id labels"
+            )
+        return ids
+
+    async def _multislice_group(
+        self,
+    ) -> Optional[tuple[str, list[dict], dict[str, int], dict[str, list[dict]]]]:
+        """(group key, members in global order, {node: global process id},
+        {slice key: slice members}) when this node's slice belongs to a
+        declared multislice group of more than one slice; None otherwise.
+
+        Membership is the ``tpu.google.com/multislice-group`` label; global
+        process ids order the slices by key and the hosts by worker id
+        within each, so every member derives the same order."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        client = self.client()
+        node = await client.get("", "Node", self.config.node_name)
+        labels = (node.get("metadata") or {}).get("labels") or {}
+        ms_key = labels.get(consts.MULTISLICE_GROUP_LABEL)
+        if not ms_key:
+            return None
+        members = (
+            nodeinfo.NodeFilter()
+            .tpu()
+            .eq(consts.MULTISLICE_GROUP_LABEL, ms_key)
+            .apply(await client.list_items("", "Node"))
+        )
+        slices: dict[str, list[dict]] = {}
+        for m in members:
+            sk = nodeinfo.slice_group_key(m)
+            if not sk:
+                raise ValidationError(
+                    f"multislice {ms_key}: member {nodeinfo.node_name(m)} has no "
+                    "slice identity (single-host or missing nodepool label)"
+                )
+            slices.setdefault(sk, []).append(m)
+        declared = labels.get(consts.MULTISLICE_SLICES_LABEL)
+        if declared:
+            try:
+                expected_slices = int(declared)
+            except ValueError:
+                raise ValidationError(
+                    f"multislice {ms_key}: malformed "
+                    f"{consts.MULTISLICE_SLICES_LABEL}={declared!r}"
+                ) from None
+            if len(slices) != expected_slices:
+                # a wholly absent member slice fails, as a partly present
+                # slice does: slice health is a property of the whole set
+                raise ValidationError(
+                    f"multislice {ms_key}: {len(slices)}/{expected_slices} "
+                    f"member slices visible ({sorted(slices)})"
+                )
+        elif len(slices) < 2:
+            log.warning(
+                "multislice %s: only one member slice visible and no %s "
+                "declaration; skipping cross-slice validation (set the label "
+                "to make absence a failure)",
+                ms_key, consts.MULTISLICE_SLICES_LABEL,
+            )
+            return None
+        ordered: list[dict] = []
+        for sk in sorted(slices):
+            self._checked_worker_ids(sk, slices[sk])  # sorts by worker id
+            ordered.extend(slices[sk])
+        ids = {nodeinfo.node_name(m): i for i, m in enumerate(ordered)}
+        return ms_key, ordered, ids, slices
+
+    async def _await_member_slices_proven(
+        self, ms_key: str, slices: dict[str, list[dict]]
+    ) -> None:
+        """Hold the cross-slice run until every member slice's own
+        rendezvous is proven and garbage-collected (its Service's tombstone
+        at the slice's current epoch): a pinned pod that does not fit its
+        node's free cards is rejected, not queued, so cross-slice pods must
+        not race the member slices' pods for the same cards."""
+        for _ in range(self.config.workload_retries):
+            pending = None
+            for sk, mems in slices.items():
+                svc = self._group_service_name(sk)
+                epoch = await self._validation_epoch(mems)
+                if await self._group_tombstone(svc) != epoch:
+                    pending = sk
+                    break
+            if pending is None:
+                return
+            await asyncio.sleep(self.config.sleep_interval)
+        raise ValidationError(
+            f"multislice {ms_key}: member slice {pending} never proved its own "
+            "rendezvous; cannot start the cross-slice phase"
+        )
+
+    def _group_pod_name(
+        self, key: str, worker_id: int, base: str = "tpu-jax-validation"
+    ) -> str:
+        from tpu_operator_torch.utils import hashed_name
+
+        return hashed_name(base, f"{key}-w{worker_id}")
+
+    def _group_service_name(self, key: str, base: str = "tpu-jax-validation") -> str:
+        from tpu_operator_torch.utils import hashed_name
+
+        return hashed_name(base, key)
+
+    async def _validation_epoch(self, members: list[dict]) -> str:
+        """Identity of the runtime the slice is proven against.  A pod's
+        Succeeded phase is evidence only for the runtime it ran on: the
+        epoch hashes, per member, the live runtime pod's UID (new on every
+        swap, a same-version reinstall included) with the reported version
+        label as the host-managed fallback, so every host derives the same
+        value from cluster state."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        runtime_uid: dict[str, str] = {}
+        for pod in await self.client().list_items(
+            "", "Pod", self.config.namespace, label_selector="app=tpu-runtime"
+        ):
+            meta = pod.get("metadata") or {}
+            if meta.get("deletionTimestamp"):
+                continue
+            node = (pod.get("spec") or {}).get("nodeName")
+            if node:
+                runtime_uid[node] = meta.get("uid", "")
+        ident = sorted(
+            (nodeinfo.node_name(m), runtime_uid.get(nodeinfo.node_name(m), ""),
+             nodeinfo.runtime_version(m))
+            for m in members
+        )
+        return hashlib.sha1(json.dumps(ident).encode()).hexdigest()[:12]
+
+    async def validate_jax_multihost(self, key: str, members: list[dict]) -> None:
+        """One global collective across every host of the slice.
+
+        Worker 0's validator converges the rendezvous: a headless Service
+        and one workload pod per host, pinned to it, running the distributed
+        program with the store at worker 0's pod.  Every host's validator
+        gates its own ``jax-ready`` on its own pod succeeding, which happens
+        only if the global psum, allreduce and burn-in passed on every host.
+        Evidence is keyed to a validation epoch: a Succeeded pod of an older
+        epoch is stale, and whichever validator notices (worker 0 at once,
+        another after a grace period) recreates the out-of-date pods.  After
+        success the converging validator records the epoch on the Service
+        and deletes the pods, so later validators accept the tombstone.
+
+        When the slice belongs to a declared multislice group, ``jax-ready``
+        also needs the cross-slice rendezvous over every host of every
+        member slice, with global process ids, gated at the cross-slice
+        floor (``_multislice_min_gbps``)."""
+        ids = {m["metadata"]["name"]: _worker_id_of(m) for m in members}
+        payload = await self._validate_group_rendezvous(
+            key, members, ids, mode="multi-host"
+        )
+        ms = await self._multislice_group()
+        if ms is not None:
+            ms_key, ms_members, ms_ids, ms_slices = ms
+            ms_payload = await self._validate_group_rendezvous(
+                ms_key, ms_members, ms_ids, mode="multislice",
+                gate_slice=False,
+                base=MULTISLICE_BASE,
+                # awaited before every convergence, not just the first: an
+                # epoch change mid-run re-triggers the member slices'
+                # validations, and cross-slice pods must never race them
+                before_ensure=functools.partial(
+                    self._await_member_slices_proven, ms_key, ms_slices
+                ),
+            )
+            payload["multislice"] = {
+                k: ms_payload[k]
+                for k in ("group", "workers", "worker_id", "epoch", "proven_by")
+            }
+            # the cross-slice pods' figures, from their own scope
+            payload["multislice"].update(
+                _measured_from_results(status.read_workload_results(scope="multislice"))
+            )
+        # this host's slice pod wrote its figures into the node-local
+        # drop-box; on the tombstone path it holds the last run's, the
+        # exporter's "last measured"
+        payload.update(_measured_from_results(status.read_workload_results()))
+        await self._finish_measured("jax", payload)
+        status.write_ready("jax", payload)
+
+    async def _validate_group_rendezvous(
+        self,
+        key: str,
+        members: list[dict],
+        ids: dict[str, int],
+        mode: str,
+        gate_slice: bool = True,
+        base: str = "tpu-jax-validation",
+        before_ensure=None,
+    ) -> dict:
+        """Converge and gate on one rendezvous over ``members`` with the
+        given process ids; returns the proof payload (the caller writes the
+        status).  ``base`` namespaces the Service and pod names, so distinct
+        rendezvous kinds never share evidence."""
+        my_id = ids[self.config.node_name]
+        svc = self._group_service_name(key, base)
+        coordinator = (
+            f"{self._group_pod_name(key, 0, base)}.{svc}."
+            f"{self.config.namespace}.svc:{COORDINATOR_PORT}"
+        )
+        client = self.client()
+        epoch = await self._validation_epoch(members)
+        if my_id == 0:
+            if before_ensure is not None:
+                await before_ensure()
+            await self._ensure_group_workloads(
+                key, members, svc, coordinator, epoch, ids, gate_slice, base
+            )
+
+        def ready_payload(proven_by: str) -> dict:
+            return {
+                "mode": mode,
+                "group": key,
+                "workers": len(members),
+                "worker_id": my_id,
+                "epoch": epoch,
+                "proven_by": proven_by,
+            }
+
+        # the other workers give worker 0 this many polls before converging
+        # the pod set themselves (idempotent: current pods are left alone)
+        patience = 10 if my_id != 0 else 0
+        name = self._group_pod_name(key, my_id, base)
+        phase = None
+        ensured = my_id == 0  # whoever converged the pod set also collects it
+        for attempt in range(self.config.workload_retries):
+            # the epoch is derived anew on every poll: validators that kept
+            # different snapshots across a runtime restart would delete each
+            # other's pod sets until their retries ran out
+            epoch = await self._validation_epoch(members)
+            if await self._group_tombstone(svc) == epoch:
+                return ready_payload("service-tombstone")
+            try:
+                live = await client.get("", "Pod", name, self.config.namespace)
+            except ApiError as e:
+                if not e.not_found:
+                    raise
+                live = None
+            pod_epoch = (
+                ((live.get("metadata") or {}).get("labels") or {}).get(EPOCH_LABEL)
+                if live is not None
+                else None
+            )
+            if live is None or pod_epoch != epoch:
+                if attempt >= patience:
+                    if before_ensure is not None:
+                        await before_ensure()
+                    await self._ensure_group_workloads(
+                        key, members, svc, coordinator, epoch, ids, gate_slice, base
+                    )
+                    ensured = True
+                await asyncio.sleep(self.config.sleep_interval)
+                continue
+            phase = (live.get("status") or {}).get("phase")
+            if phase == "Succeeded":
+                if ensured:
+                    # the validator that converged the pod set records the
+                    # tombstone and collects the pods, also when a worker
+                    # other than 0 drove a re-proof
+                    await self._cleanup_group_workloads(
+                        key, members, svc, epoch, ids, base
+                    )
+                return ready_payload("workload-pod")
+            if phase == "Failed":
+                raise ValidationError(
+                    f"distributed validation pod {name} failed (slice {key})"
+                )
+            await asyncio.sleep(self.config.sleep_interval)
+        raise ValidationError(
+            f"distributed validation pod {name} did not complete (phase={phase})"
+        )
+
+    async def _group_tombstone(self, svc: str) -> Optional[str]:
+        """The epoch already proven for this group, recorded on its headless
+        Service once the pods were collected."""
+        try:
+            service = await self.client().get("", "Service", svc, self.config.namespace)
+        except ApiError as e:
+            if e.not_found:
+                return None
+            raise
+        return ((service.get("metadata") or {}).get("annotations") or {}).get(
+            VALIDATED_EPOCH_ANNOTATION
+        )
+
+    async def _ensure_group_workloads(
+        self,
+        key: str,
+        members: list[dict],
+        svc: str,
+        coordinator: str,
+        epoch: str,
+        ids: dict[str, int],
+        gate_slice: bool = True,
+        base: str = "tpu-jax-validation",
+    ) -> None:
+        """Converge the headless Service and one pinned pod per host to the
+        current epoch; pods already at it (and not Failed) are left alone.
+        ``ids`` gives each host its process id (worker ids in a slice,
+        global ids across a multislice).  ``gate_slice`` arms the slice's
+        floor; the cross-slice run takes the cross-slice floor instead."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        if await self._group_tombstone(svc) == epoch:
+            # already proven and collected (the cleanup can land between a
+            # peer's tombstone check and its pod poll): new pods here would
+            # start a rendezvous nobody joins
+            return
+        client = self.client()
+        owner = await self._owner_daemonset()
+        service = {
+            "apiVersion": "v1",
+            "kind": "Service",
+            "metadata": {
+                "name": svc,
+                "namespace": self.config.namespace,
+                "labels": {"app": "tpu-jax-validation", "tpu.google.com/slice-group": svc},
+            },
+            "spec": {
+                "clusterIP": "None",  # headless: per-pod DNS for the rendezvous
+                "selector": {"tpu.google.com/slice-group": svc},
+                "ports": [{"port": COORDINATOR_PORT, "name": "coordinator"}],
+            },
+        }
+        if owner is not None:
+            from tpu_operator_torch.k8s.client import set_owner_reference
+
+            set_owner_reference(service, owner)
+        try:
+            await client.create(service)
+        except ApiError as e:
+            if not e.already_exists:
+                raise
+        # the program's world: every host's cards, one rank each
+        cards = sum(_allocatable_cards(m) for m in members)
+        for member in members:
+            node = nodeinfo.node_name(member)
+            wid = ids[node]
+            name = self._group_pod_name(key, wid, base)
+            try:
+                live = await client.get("", "Pod", name, self.config.namespace)
+            except ApiError as e:
+                if not e.not_found:
+                    raise
+                live = None
+            if live is not None:
+                current = ((live.get("metadata") or {}).get("labels") or {}).get(EPOCH_LABEL)
+                if current == epoch and (live.get("status") or {}).get("phase") != "Failed":
+                    continue
+                await client.delete("", "Pod", name, self.config.namespace)
+            generation = nodeinfo.generation_of_node(member)
+            if gate_slice:
+                # the armed slice floor, from the host NIC rate; the ring
+                # stays report-only across hosts (its hops in enumeration
+                # order only bound a link's rate from below) unless
+                # RING_MIN_GBPS arms it
+                min_gbps = _slice_min_gbps(generation, cards)
+                ring_min = _env_floor("RING_MIN_GBPS", lambda: 0.0)
+            else:
+                min_gbps = _multislice_min_gbps(generation)
+                ring_min = 0.0
+            pod = self._workload_pod(
+                name,
+                checks="",
+                tpu_request=_allocatable_cards(member),
+                owner=owner,
+                min_gbps=min_gbps,
+                ring_min_gbps=ring_min,
+            )
+            pod["metadata"]["labels"]["tpu.google.com/slice-group"] = svc
+            pod["metadata"]["labels"][EPOCH_LABEL] = epoch
+            spec = pod["spec"]
+            spec["nodeName"] = node
+            # the pod's DNS record under the headless Service
+            spec["hostname"] = name
+            spec["subdomain"] = svc
+            container = spec["containers"][0]
+            container["command"] = list(DISTRIBUTED_COMMAND)
+            container["env"] += [
+                {"name": "COORDINATOR_ADDRESS", "value": coordinator},
+                {"name": "NUM_PROCESSES", "value": str(len(members))},
+                {"name": "PROCESS_ID", "value": str(wid)},
+            ]
+            if not gate_slice:
+                # cross-slice figures in their own drop-box scope, never
+                # over the slice's
+                container["env"].append({"name": "RESULTS_SCOPE", "value": "multislice"})
+            try:
+                await client.create(pod)
+            except ApiError as e:
+                # another worker converged this name at once, or the old pod
+                # is still terminating; the next poll's epoch check decides
+                if not e.already_exists:
+                    raise
+
+    async def _cleanup_group_workloads(
+        self,
+        key: str,
+        members: list[dict],
+        svc: str,
+        epoch: str,
+        ids: dict[str, int],
+        base: str = "tpu-jax-validation",
+    ) -> None:
+        """Once every member pod of this epoch has Succeeded, record the
+        epoch on the Service, then delete the pods.  Bounded and best-effort;
+        the pods go only after the tombstone landed, so a crash in between
+        costs one re-proof, never a false pass."""
+        from tpu_operator_torch.k8s import nodeinfo
+
+        client = self.client()
+        names = [self._group_pod_name(key, ids[nodeinfo.node_name(m)], base) for m in members]
+        for _ in range(min(60, self.config.workload_retries)):
+            done = 0
+            for name in names:
+                try:
+                    pod = await client.get("", "Pod", name, self.config.namespace)
+                except ApiError as e:
+                    if not e.not_found:
+                        raise
+                    # already gone: absence must not hold back the tombstone
+                    # the remaining Succeeded pods have earned
+                    done += 1
+                    continue
+                if (((pod.get("metadata") or {}).get("labels") or {}).get(EPOCH_LABEL) == epoch
+                        and (pod.get("status") or {}).get("phase") == "Succeeded"):
+                    done += 1
+            if done == len(names):
+                break
+            await asyncio.sleep(self.config.sleep_interval)
+        else:
+            log.info(
+                "slice %s: not all validation pods finished; leaving them in place", key,
+            )
+            return
+        await client.patch(
+            "", "Service", svc,
+            {"metadata": {"annotations": {VALIDATED_EPOCH_ANNOTATION: epoch}}},
+            self.config.namespace,
+        )
+        for name in names:
+            await client.delete("", "Pod", name, self.config.namespace)
+
     async def validate_vfio(self) -> None:
         devices = hw.vfio_device_paths()
         if not devices:
@@ -694,12 +1253,7 @@ class Validator:
 
     # ------------------------------------------------------------------
     async def _node_chip_count(self) -> int:
-        node = await self.client().get("", "Node", self.config.node_name)
-        alloc = (node.get("status") or {}).get("allocatable") or {}
-        try:
-            return max(1, int(alloc.get(consts.GPU_RESOURCE, "1")))
-        except ValueError:
-            return 1
+        return _allocatable_cards(await self.client().get("", "Node", self.config.node_name))
 
     async def _owner_daemonset(self) -> Optional[dict]:
         try:
