@@ -2,8 +2,13 @@
 """Smoke run of the PyTorch/CUDA port on an NVIDIA card.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serving-steps [DIR]
 
-Drives the port's main paths, the node readiness gate, the long-context
+The second form runs only quick_check's A/B in both attends with the
+engine's attend call timed, on the package of the checkout in DIR (another
+commit's tree) or of this one: two trees compare on one card in one call.
+
+The first drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
 census, the multi-host program, the serving engine, the migratable
 training job, the warm pool of kernel libraries, the node validator, the
@@ -66,9 +71,12 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    exit 0, one JSON line, the drop-box, identical_outputs; then
    quick_check's A/B (8 requests, 24 prompt and 12 new tokens, max_batch 8)
    in the dense and the flash attend: identical outputs in each, every
-   stream the same in both, the flash run on B5's ``f32`` path only (its
-   launch count above 0, the bf16 paths' 0), the dense run on none; prints
-   each run's tokens_per_sec, speedup and tpot_p50_s; then the replica
+   stream the same in both, the flash run one launch of B5's paged f32
+   entry per attend call with a context at or past the 8-row tail and no
+   other path (the contiguous f32 entry's count 0) and no gather of pages,
+   the dense run on none; prints each run's tokens_per_sec, speedup and
+   tpot_p50_s and its attend call's time per batched step (CUDA events
+   around each call, median); then the replica
    ``python -m tpu_operator_torch.workloads.serving`` (6 s of service at 4
    requests/s, 48-64 new tokens): the migrate signal written mid-run while
    a batch is live, exit 0 after a checkpoint holding in-flight requests;
@@ -147,12 +155,19 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    leave the accumulators or the state bit-identical: per output, max
    |kernel - plain| within 1e-4 of max |plain| in f32 and 1e-2 in bf16 (B4:
    this hop's contribution, on top of non-zero accumulators); every case
-   launched twice on the same inputs, bit-identical; B5's f32 path at the
-   serving shapes (BH 2, an 8-row tail at q_off = length - 8 against 24, 40
+   launched twice on the same inputs, bit-identical; B5's contiguous f32
+   entry at the old serving shapes (BH 2, an 8-row tail at q_off = length - 8 against 24, 40
    and 136 keys padded to a 16-token page, D 8 and 16), ragged non-causal
    Tq 136 x Tk 200 at D 64, rows that see no key and BH 1: out within 1e-4
    of max |plain|, lse within 1e-5, blind rows exactly 0 and -1e30, each
-   case launched twice and bit-identical
+   case launched twice and bit-identical; B5's paged f32 entry at the
+   engine's step (8 requests at contexts 24-35, 2 heads, D 16), page edges
+   (1 to 128 tokens, reversed tables, D 8), rows of length 0, split edges
+   (511 to 2048 tokens at D 64; 8-token pages at D 128), D 40 and the long
+   shape (8 requests x 8 heads, D 128, 3585-4096 tokens in a 2048-page
+   pool in random order): the same tolerances, each case launched twice
+   and bit-identical, and its first and last request alone the same bits
+   as their rows in the batch
 16. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
@@ -170,9 +185,11 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    backward alone of ``scaled_dot_product_attention`` (its backend named);
    the f32 rows bound by 3xTF32 (three passes over the
    TF32 peak), the CUDA-core bound beside it as ``bound_simt_ms``; B5's f32
-   path at (2, 8, 128, 16) causal, q_off 120, beside its plain version and
-   ``scaled_dot_product_attention`` on f32 with a boolean mask, bound by the
-   f32 CUDA-core peak
+   contiguous entry at (2, 8, 128, 16) causal, q_off 120, and its paged
+   entry at the engine's step (8 requests at context 35) and at the long
+   shape, beside the plain versions and ``scaled_dot_product_attention`` on
+   f32 with a boolean mask (the paged rows on the pages gathered
+   beforehand), bound by the bytes (each live K/V row read once)
 
 Launch counts are set to 0 just before each main path runs and read just
 after it; the kernel and timing phases' launches are not counted.  Prints
@@ -638,48 +655,98 @@ def _signal(path: str) -> None:
         f.write(f'{consts.MIGRATE_ANNOTATION}="{consts.MIGRATE_REQUESTED}"\n')
 
 
-def serving_phase(n_cards: int) -> dict:
-    """The serving check through the entry point (RESULTS_SCOPE=perf, as the
-    perf pod asks for it), quick_check's A/B in both attends on the card,
-    and the replica's migrate-and-restore round trip.  Returns the f32
-    forward's launches in the flash run and both runs' results."""
+def serving_ab(attend: str) -> dict:
+    """quick_check's A/B in one attend, with the engine's attend call timed
+    by CUDA events around every call, the pool's gathers and B5's launches by
+    path counted over the whole check.  Returns quick_check's result with
+    ``paths`` (B5's launches by path), ``gathers``, ``attend_calls`` and
+    ``tail_calls`` (calls with a context at or past the 8-row tail) over the
+    three runs, ``step_ms`` (each attend call of the batched run, the last)
+    and ``streams``.  Reads only names that this tree and the trees before
+    the paged attend share, so it times either."""
+    import torch
+
     from tpu_operator_torch.kernels import flash_attention as fa
     from tpu_operator_torch.workloads import serving
 
-    def zero():
-        fa.forward_launches = 0
-        fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
+    method = "_attend_flash" if attend == "flash" else "_attend_dense"
+    inner, gather = getattr(serving.ServingEngine, method), serving.PagedKVCache.gather
+    calls, gathers = [], [0]
 
-    zero()
+    def timed(self, reqs, qs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(self, reqs, qs)
+        end.record()
+        tail = any(len(req.tokens) >= serving.FLASH_TAIL for req in reqs)
+        calls.append((self, tail, start, end))
+        return out
+
+    def counted(self, *args, **kwargs):
+        gathers[0] += 1
+        return gather(self, *args, **kwargs)
+
+    fa.forward_launches = 0
+    fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
+    streams = {}
+    setattr(serving.ServingEngine, method, timed)
+    serving.PagedKVCache.gather = counted
+    try:
+        t0 = time.perf_counter()
+        r = serving.quick_check(attend=attend, streams=streams)
+        seconds = time.perf_counter() - t0
+    finally:
+        setattr(serving.ServingEngine, method, inner)
+        serving.PagedKVCache.gather = gather
+    torch.cuda.synchronize()
+    batched = [start.elapsed_time(end) for engine, _, start, end in calls
+               if engine is calls[-1][0]]
+    r.update(paths=dict(fa.forward_path_launches), gathers=gathers[0], attend_calls=len(calls),
+             tail_calls=sum(tail for _, tail, _, _ in calls), step_ms=batched,
+             step_ms_median=statistics.median(batched), streams=streams, seconds=seconds)
+    print(f"serving [{attend}]: identical_outputs {r['identical_outputs']}, tokens_per_sec "
+          f"sequential {r['sequential']['tokens_per_sec']!r} batched "
+          f"{r['batched']['tokens_per_sec']!r}, speedup {r['speedup']!r}, tpot_p50_s "
+          f"sequential {r['sequential']['tpot_p50_s']!r} batched "
+          f"{r['batched']['tpot_p50_s']!r}; {method} per batched step (CUDA events, "
+          f"{len(batched)} steps) median {r['step_ms_median']!r} ms, min {min(batched)!r}, max "
+          f"{max(batched)!r}; {len(calls)} attend calls ({r['tail_calls']} at or past the tail), "
+          f"{gathers[0]} gathers, forward launches by path {r['paths']} ({seconds:.2f}s)",
+          flush=True)
+    return r
+
+
+def serving_phase(n_cards: int) -> dict:
+    """The serving check through the entry point (RESULTS_SCOPE=perf, as the
+    perf pod asks for it), quick_check's A/B in both attends on the card,
+    and the replica's migrate-and-restore round trip.  Returns the paged
+    kernel's launches in the flash run and both runs' results."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    fa.forward_launches = 0
+    fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
     by, paths = run_checks(("serving",), n_cards, lambda: dict(fa.forward_path_launches),
                            scope="perf")
     check = by["serving"]
     require(check["ok"] and check["identical_outputs"] and check["backend"] == "cuda",
             f"serving check: {check}")
-    runs, streams = {}, {}
+    runs = {}
     for attend in ("dense", "flash"):
-        streams[attend] = {}
-        zero()
-        t0 = time.perf_counter()
-        r = serving.quick_check(attend=attend, streams=streams[attend])
-        seconds = time.perf_counter() - t0
-        r["paths"] = dict(fa.forward_path_launches)
-        runs[attend] = r
-        print(f"serving [{attend}]: identical_outputs {r['identical_outputs']}, tokens_per_sec "
-              f"sequential {r['sequential']['tokens_per_sec']!r} batched "
-              f"{r['batched']['tokens_per_sec']!r}, speedup {r['speedup']!r}, tpot_p50_s "
-              f"sequential {r['sequential']['tpot_p50_s']!r} batched "
-              f"{r['batched']['tpot_p50_s']!r}; forward launches by path {r['paths']} "
-              f"({seconds:.2f}s)", flush=True)
+        runs[attend] = r = serving_ab(attend)
         require(r["ok"] and r["identical_outputs"], f"serving [{attend}] changed outputs")
-    flash = runs["flash"]["paths"]
-    require(flash["f32"] > 0 and all(n == 0 for p, n in flash.items() if p != "f32"),
-            f"the flash attend launched {flash} (expected only the f32 path)")
+    flash = runs["flash"]
+    # one paged launch per flash step that had a context at or past the tail,
+    # no other path (the contiguous f32 entry among them), no gather
+    require(flash["paths"]["paged_f32"] == flash["tail_calls"] > 0
+            and all(n == 0 for p, n in flash["paths"].items() if p != "paged_f32"),
+            f"the flash attend launched {flash['paths']} over {flash['tail_calls']} steps at or "
+            "past the tail (expected one paged launch each, nothing else)")
+    require(flash["gathers"] == 0, f"the flash attend gathered pages {flash['gathers']} times")
     require(all(n == 0 for n in runs["dense"]["paths"].values()), "the dense attend launched B5")
-    require(streams["dense"] == streams["flash"] and len(streams["flash"]) == 8,
+    require(runs["dense"]["streams"] == flash["streams"] and len(flash["streams"]) == 8,
             "dense and flash attends gave different token streams")
     replica_phase()
-    return {"f32_launches": flash["f32"], "runs": runs}
+    return {"paged_launches": flash["paths"]["paged_f32"], "runs": runs}
 
 
 def replica_phase() -> None:
@@ -1572,13 +1639,109 @@ def flash_kernel_phase() -> dict:
     return worst
 
 
-def f32_kernel_phase() -> float:
-    """Kernel B5's f32 path against its plain version on the card: the
-    serving shapes (BH 2, an 8-row tail at q_off = length - 8, keys padded
-    to a 16-token page, D 8 and 16), a ragged non-causal Tq 136 x Tk 200 at D
-    64, rows that see no key, BH 1; out within F32_RTOL of max |plain|, lse
-    within STATE_RTOL, rows that see no key exactly 0 and NEG_INF, each case
-    launched twice and bit-identical.  Returns the worst out error."""
+# the paged entry's cases: label, lengths, heads, D, block_tokens, pool
+# blocks, table width (pages), table order
+PAGED_CASES = [
+    ("engine step: quick_check's contexts", [24, 26, 28, 30, 32, 33, 34, 35], 2, 16, 16, 96, 8,
+     "random"),
+    ("page edges, reversed tables", [1, 8, 15, 16, 17, 31, 32, 33], 2, 16, 16, 96, 8, "reverse"),
+    ("page edges at D 8", [8, 16, 17, 31, 32, 33, 64, 128], 2, 8, 16, 96, 8, "random"),
+    ("blind rows (length 0) beside live ones", [0, 40, 0, 128], 2, 16, 16, 96, 8, "random"),
+    ("split edges at D 64", [511, 512, 513, 1024, 1025, 2048], 4, 64, 16, 1024, 128, "random"),
+    ("8-token pages, D 128", [255, 256, 257, 1000], 3, 128, 8, 512, 128, "reverse"),
+    ("D 40 (a row of 10 lanes)", [9, 100, 300], 2, 40, 16, 64, 32, "random"),
+    ("long: 8 requests x 8 heads, D 128", "long", 8, 128, 16, 2048, 256, "random"),
+]
+
+
+def long_lengths() -> list:
+    """The long paged shape's 8 ragged lengths, 3585 to 4096, one of them
+    exactly 4096, from a fixed seed."""
+    import torch
+
+    lengths = torch.randint(3585, 4097, (8,), generator=torch.Generator().manual_seed(14))
+    lengths[3] = 4096
+    return lengths.tolist()
+
+
+def paged_inputs(gen, lengths, heads, d, bt, num_blocks, width, order) -> tuple:
+    """q [R, H, D] and pools [num_blocks, bt, H, D] of randoms on the card,
+    and each request's pages taken from a seeded permutation of the pool
+    (``order`` random) or from a run of it, reversed; table entries past a
+    request's live pages are -1 (never read)."""
+    import torch
+
+    perm = torch.randperm(num_blocks, generator=torch.Generator().manual_seed(num_blocks))
+    tables = torch.full((len(lengths), width), -1, dtype=torch.int32)
+    taken = 0
+    for r, n in enumerate(lengths):
+        pages = -(-n // bt)
+        blocks = perm[taken:taken + pages] if order == "random" else \
+            torch.arange(taken, taken + pages).flip(0)
+        tables[r, :pages] = blocks.to(torch.int32)
+        taken += pages
+    require(taken <= num_blocks, f"{taken} pages from a pool of {num_blocks}")
+    q = torch.randn((len(lengths), heads, d), generator=gen, device="cuda")
+    kp, vp = (torch.randn((num_blocks, bt, heads, d), generator=gen, device="cuda")
+              for _ in range(2))
+    return (q, kp, vp, tables.cuda(), torch.tensor(lengths, dtype=torch.int32, device="cuda"))
+
+
+def paged_kernel_phase() -> float:
+    """The paged entry at ``PAGED_CASES`` against its plain version: out
+    within F32_RTOL of max |plain|, lse within STATE_RTOL, blind rows exactly
+    0 and NEG_INF, two launches bit-identical, and the first and the last
+    request alone bit-identical to their rows in the batch.  Returns the
+    worst out error."""
+    import torch
+
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    worst = 0.0
+    for label, lengths, heads, d, bt, num_blocks, width, order in PAGED_CASES:
+        lengths = long_lengths() if lengths == "long" else lengths
+        q, kp, vp, tables, lens = paged_inputs(gen, lengths, heads, d, bt, num_blocks, width,
+                                               order)
+        out, lse = fa.flash_attention_paged(q, kp, vp, tables, lens)
+        again = fa.flash_attention_paged(q, kp, vp, tables, lens)
+        alone = [fa.flash_attention_paged(q[i:i + 1], kp, vp, tables[i:i + 1], lens[i:i + 1])
+                 for i in (0, len(lengths) - 1)]
+        torch.cuda.synchronize()
+        require(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+                f"the paged forward is not deterministic at {label}")
+        for i, (o, s) in zip((0, len(lengths) - 1), alone):
+            require(torch.equal(o[0], out[i]) and torch.equal(s[0], lse[i]),
+                    f"the paged forward's row {i} depends on the batch at {label}")
+        ref, ref_lse = fa.flash_attention_paged_reference(q, kp, vp, tables, lens)
+        blind = lens == 0
+        require(not out[blind].any() and bool((lse[blind] == fa.NEG_INF).all()),
+                f"the paged forward gave a request of length 0 a value at {label}")
+        seen = ~blind
+        err = _abs_err(out[seen], ref[seen])
+        scaled = err / float(ref[seen].abs().max())
+        lse_err = _rel_err(lse[seen], ref_lse[seen])
+        splits = sorted({fa._paged_split_count(n, bt) for n in lengths})
+        print(f"kernel flash_attention_paged [f32] {label} (lengths {min(lengths)}-"
+              f"{max(lengths)}, splits {splits}): out max_abs_err={err!r} (/max|plain| "
+              f"{scaled!r}) lse max_rel_err={lse_err!r}, {int(blind.sum())} blind rows exact, "
+              "two launches and the rows alone bit-identical", flush=True)
+        require(scaled <= F32_RTOL and lse_err <= STATE_RTOL,
+                f"the paged forward differs from its plain version at {label}")
+        worst = max(worst, err)
+        del q, kp, vp
+    return worst
+
+
+def f32_kernel_phase() -> dict:
+    """Kernel B5's f32 entries against their plain versions on the card.
+    The contiguous entry: the old serving shapes (BH 2, an 8-row tail at
+    q_off = length - 8, keys padded to a 16-token page, D 8 and 16), a
+    ragged non-causal Tq 136 x Tk 200 at D 64, rows that see no key, BH 1.
+    The paged entry: ``PAGED_CASES``.  Out within F32_RTOL of max |plain|,
+    lse within STATE_RTOL, rows that see no key exactly 0 and NEG_INF, each
+    case launched twice and bit-identical.  Returns the worst out error of
+    each entry."""
     import torch
 
     from tpu_operator_torch.kernels import flash_attention as fa
@@ -1622,7 +1785,7 @@ def f32_kernel_phase() -> float:
         require(scaled <= F32_RTOL and lse_err <= STATE_RTOL,
                 f"the f32 forward differs from its plain version at {label}")
         worst = max(worst, err)
-    return worst
+    return {"contiguous": worst, "paged": paged_kernel_phase()}
 
 
 def _hop_inputs(gen, dtype, bh, tq, tk, d, q_off, k_off, causal) -> tuple:
@@ -1998,10 +2161,14 @@ def flash_timing_phase(name: str) -> dict:
 
 
 def f32_timing_phase(name: str) -> dict:
-    """Kernel B5's f32 path at the serving engine's longest page, (2, 8,
-    128, 16) causal at q_off 120, beside its plain version and
+    """Kernel B5's f32 entries, their plain versions and
     ``scaled_dot_product_attention`` on f32 with an explicit boolean mask
-    (the nearest library call)."""
+    (the nearest library call): the contiguous entry at the old serving
+    page, (2, 8, 128, 16) causal at q_off 120; the paged entry at the
+    engine's decode step (quick_check's 8 requests at its longest context,
+    35, 2 heads, D 16, 16-token pages) and at the long shape (8 requests x 8
+    heads, D 128, lengths 3585-4096, a 2048-block pool in random order).
+    Returns the rows by label."""
     import torch
     import torch.nn.functional as F
 
@@ -2015,7 +2182,7 @@ def f32_timing_phase(name: str) -> dict:
     # is_causal aligns top-left when Tq != Tk: the tail's mask is explicit
     mask = torch.arange(tk, device="cuda")[None, :] <= (q_off + torch.arange(tq, device="cuda"))[:, None]
     pairs = bh * sum(q_off + i + 1 for i in range(tq))
-    row = {
+    rows = {"contiguous": {
         "shape": [bh, tq, tk, d], "causal": True, "q_off": q_off, "dtype": "float32",
         "ms": time_ms(lambda: fa.flash_attention_local(q, k, v, True, q_off=q_off)),
         "plain_ms": time_ms(lambda: fa.flash_attention_local_reference(q, k, v, True,
@@ -2028,10 +2195,45 @@ def f32_timing_phase(name: str) -> dict:
         **_bound(4.0 * d * pairs, 4 * (2 * bh * tq * d + 2 * bh * tk * d + bh * tq), (mem, f32_peak)),
         "note": ("the bound is about ten nanoseconds, far below one launch (a few "
                  "microseconds): at this shape every time here is launch latency"),
-    }
-    row["bound_share"] = row["bound_ms"] / row["ms"]
-    print(json.dumps({"timing": "flash_attention_local f32 (serving)", **row}), flush=True)
-    return row
+    }}
+    for label, lengths, heads, d, bt, num_blocks, width in (
+            ("engine", [35] * 8, 2, 16, 16, 96, 8),
+            ("long", long_lengths(), 8, 128, 16, 2048, 256)):
+        q, kp, vp, tables, lens = paged_inputs(gen, lengths, heads, d, bt, num_blocks, width,
+                                               "random")
+        # SDPA's inputs: each request's pages gathered contiguous [R, H, T, D]
+        # (the gather outside the timing), the keys past its length masked
+        page_ids = tables.clamp_min(0).long()
+        gk, gv = (pool[page_ids].flatten(1, 2).transpose(1, 2).contiguous() for pool in (kp, vp))
+        keep = (torch.arange(width * bt, device="cuda")[None, :] < lens[:, None])[:, None, None]
+        keys = sum(lengths)
+        row = {
+            "requests": len(lengths), "heads": heads, "head_dim": d, "block_tokens": bt,
+            "lengths": lengths, "pool_blocks": num_blocks, "dtype": "float32",
+            "splits": [fa._paged_split_count(n, bt) for n in lengths],
+            "ms": time_ms(lambda: fa.flash_attention_paged(q, kp, vp, tables, lens)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_paged_reference(q, kp, vp, tables,
+                                                                           lens), reps=5, per=2),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q[:, :, None], gk, gv, attn_mask=keep)),
+            "library_note": ("scaled_dot_product_attention, f32, boolean length mask, on the "
+                             f"pages gathered contiguous [R, H, {width * bt}, D] beforehand "
+                             "(the gather not timed)"),
+            # each live K and V row read once, q read, out and lse written, the
+            # live table entries and the lengths read; 4 D FLOP per (row, key)
+            **_bound(4.0 * d * heads * keys,
+                     4 * (2 * keys * heads * d + 2 * len(lengths) * heads * d
+                          + len(lengths) * heads + sum(-(-n // bt) for n in lengths)
+                          + len(lengths)),
+                     (mem, f32_peak)),
+        }
+        rows[label] = row
+        del q, kp, vp, gk, gv
+    for label, row in rows.items():
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["library_bound_share"] = row["bound_ms"] / row["library_ms"]
+        print(json.dumps({"timing": f"flash f32 ({label})", **row}), flush=True)
+    return rows
 
 
 def dma_timing_phase(name: str) -> dict:
@@ -2288,16 +2490,23 @@ def main() -> int:
                    "bfloat16": {**entry(tt["backward_bfloat16"]),
                                 "library_backend": tt["backward_bfloat16"]["library_backend"]}},
     }, {
-        "name": "flash_attention_local_f32",
+        "name": "flash_attention_paged_f32",
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/flash_forward_f32.cu",
         "replaces": "tpu_operator/workloads/longctx.py:47",
-        "launches": serving["f32_launches"],
-        "max_abs_err": f32_err,
-        **entry(st),
-        "shape": st["shape"],
-        "library_note": st["library_note"],
-        "note": st["note"],
+        "launches": serving["paged_launches"],
+        "max_abs_err": f32_err["paged"],
+        **entry(st["engine"]),
+        "shape": {key: st["engine"][key] for key in ("requests", "heads", "head_dim", "lengths")},
+        "library_note": st["engine"]["library_note"],
+        "step_ms": {attend: serving["runs"][attend]["step_ms_median"]
+                    for attend in ("flash", "dense")},
+        "shapes": {"long": {**entry(st["long"]), "bound_share": st["long"]["bound_share"],
+                            "splits": st["long"]["splits"]},
+                   # the same fold behind flash_attention_local's f32 entry,
+                   # which the engine no longer calls
+                   "contiguous (2, 8, 128, 16)": {**entry(st["contiguous"]),
+                                                  "max_abs_err": f32_err["contiguous"]}},
     }]}), flush=True)
     print(f"chip_smoke: {time.perf_counter() - t0:.1f} s wall, the build included", flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}),
@@ -2305,5 +2514,35 @@ def main() -> int:
     return 0
 
 
+def serving_steps(tree: str = "") -> int:
+    """``python3 chip_smoke.py --serving-steps [DIR]``: quick_check's A/B in
+    both attends with each attend call timed (``serving_ab``), on the
+    package of the checkout in DIR (another commit's tree, unpacked by ``git
+    archive``) or of this one; one JSON line per attend.  Two trees compare
+    on one card in one call, in turns (parent, change, change, parent)."""
+    if tree:
+        sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    name, _ = device_phase()
+    import tpu_operator_torch
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(tpu_operator_torch.__file__)))
+    for attend in ("dense", "flash"):
+        r = serving_ab(attend)
+        require(r["ok"] and r["identical_outputs"], f"serving [{attend}] changed outputs")
+        keys = ("paths", "gathers", "attend_calls", "tail_calls", "step_ms_median", "step_ms",
+                "speedup", "seconds")
+        print(json.dumps({"serving_steps": attend, "tree": root, "device": name,
+                          **{key: r[key] for key in keys},
+                          **{f"{run}_{key}": r[run][key] for run in ("sequential", "batched")
+                             for key in ("tokens_per_sec", "tpot_p50_s", "steps")}}),
+              flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serving-steps"]:
+        sys.exit(serving_steps(*sys.argv[2:3]))
     sys.exit(main())

@@ -297,6 +297,73 @@ def test_forward_f32_path_rejects_what_it_does_not_take(cuda):
         fa._flash_forward_on("f32", *(x[..., :12].contiguous() for x in (q, k, v)))
 
 
+# kernel B5's paged f32 entry (the serving engine's flash attend): label,
+# lengths, heads, head dim, block tokens, pool blocks, table width
+PAGED_CASES = [
+    ("engine step", [24, 26, 28, 30, 32, 33, 34, 35], 2, 16, 16, 96, 8),
+    ("page edges and a blind row", [0, 1, 15, 16, 17, 31, 32, 33], 2, 8, 16, 96, 8),
+    ("split edges D 64", [511, 512, 513, 1025], 4, 64, 16, 256, 72),
+    ("8-token pages D 128", [257, 1000], 3, 128, 8, 256, 128),
+]
+
+
+def _paged_inputs(device, lengths, heads, d, bt, blocks, width, seed=6):
+    """q and pools of randoms; each request's pages from a seeded
+    permutation of the pool, table entries past them -1 (never read)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    perm = torch.randperm(blocks, generator=torch.Generator().manual_seed(seed))
+    tables = torch.full((len(lengths), width), -1, dtype=torch.int32)
+    taken = 0
+    for r, n in enumerate(lengths):
+        pages = -(-n // bt)
+        tables[r, :pages] = perm[taken:taken + pages].to(torch.int32)
+        taken += pages
+    q = torch.randn((len(lengths), heads, d), generator=gen, device=device)
+    k_pool, v_pool = (torch.randn((blocks, bt, heads, d), generator=gen, device=device)
+                      for _ in range(2))
+    return q, k_pool, v_pool, tables.to(device), torch.tensor(lengths, dtype=torch.int32,
+                                                               device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", PAGED_CASES, ids=[c[0] for c in PAGED_CASES])
+def test_flash_paged_kernel_matches_plain(cuda, case):
+    """One launch per call on the ``paged_f32`` path; within F32_RTOL of the
+    plain version (lse within STATE_RTOL), blind rows exact, two launches
+    bit-identical, and each request alone the same bits as its batch row."""
+    _, lengths, *shape = case
+    q, k_pool, v_pool, tables, lens = _paged_inputs(cuda, lengths, *shape)
+    before = dict(fa.forward_path_launches)
+    out, lse = fa.flash_attention_paged(q, k_pool, v_pool, tables, lens)
+    again = fa.flash_attention_paged(q, k_pool, v_pool, tables, lens)
+    torch.cuda.synchronize()
+    assert fa.forward_path_launches == {**before, "paged_f32": before["paged_f32"] + 2}
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    for r in range(len(lengths)):
+        alone = fa.flash_attention_paged(q[r:r + 1], k_pool, v_pool, tables[r:r + 1],
+                                         lens[r:r + 1])
+        assert torch.equal(alone[0][0], out[r]) and torch.equal(alone[1][0], lse[r])
+    ref, ref_lse = fa.flash_attention_paged_reference(q, k_pool, v_pool, tables, lens)
+    blind = lens == 0
+    assert not out[blind].any() and bool((lse[blind] == fa.NEG_INF).all())
+    assert _scaled(out[~blind], ref[~blind]) <= F32_RTOL
+    assert _rel(lse[~blind], ref_lse[~blind]) <= STATE_RTOL
+
+
+@pytest.mark.cuda
+def test_flash_paged_rejects_what_the_kernel_does_not_take(cuda):
+    q, k_pool, v_pool, tables, lens = _paged_inputs(cuda, [20, 9], 2, 16, 16, 8, 2)
+    before = dict(fa.forward_path_launches)
+    with pytest.raises(ValueError):  # D 12: the kernel takes multiples of 8
+        fa.flash_attention_paged(*(x[..., :12].contiguous() for x in (q, k_pool, v_pool)),
+                                 tables, lens)
+    with pytest.raises(ValueError):  # the tables on the CPU
+        fa.flash_attention_paged(q, k_pool, v_pool, tables.cpu(), lens)
+    with pytest.raises(TypeError):  # int64 lengths
+        fa.flash_attention_paged(q, k_pool, v_pool, tables, lens.long())
+    assert fa.forward_path_launches == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("path", ["wgmma", "split", "mma"])
 def test_forward_paths_reject_what_they_do_not_take(cuda, path):

@@ -259,6 +259,66 @@ def test_flash_and_dense_streams_match_jax():
         _assert_same_streams(got, ref, model, prompts, seed=f"5/6 {key}")
 
 
+@pytest.mark.parametrize("prompts", [(24,) * 8, (3, 12, 5, 20)], ids=["quick-check", "short-tails"])
+def test_flash_step_is_one_paged_call_and_no_gather(monkeypatch, prompts):
+    """The flash attend makes one ``flash_attention_paged`` call per decode
+    step that has a context at or past the 8-row tail, none in a step that
+    has only shorter ones, and gathers pages only for the dense attend of a
+    context shorter than the tail (one gather each)."""
+    paged, gathers, steps = [], [0], []
+    call, gather, attend = (fa.flash_attention_paged, tsrv.PagedKVCache.gather,
+                            tsrv.ServingEngine._attend_flash)
+
+    def counted_call(*args):
+        paged.append(int((args[4] > 0).sum()))
+        return call(*args)
+
+    def counted_gather(self, *args, **kwargs):
+        gathers[0] += 1
+        return gather(self, *args, **kwargs)
+
+    def counted_attend(self, reqs, qs):
+        steps.append(sum(len(req.tokens) >= tsrv.FLASH_TAIL for req in reqs))
+        return attend(self, reqs, qs)
+
+    monkeypatch.setattr(fa, "flash_attention_paged", counted_call)
+    monkeypatch.setattr(tsrv.PagedKVCache, "gather", counted_gather)
+    monkeypatch.setattr(tsrv.ServingEngine, "_attend_flash", counted_attend)
+    engine = tsrv.ServingEngine(tsrv.ServeConfig(max_batch=8, attend="flash", device="cpu"))
+    streams = _drive(engine, [_req(tsrv, f"p{i}", n, 12, seed=i) for i, n in enumerate(prompts)])
+    assert all(len(s) == 12 for s in streams.values())
+    assert len(paged) == sum(1 for n in steps if n) > 0
+    assert paged == [n for n in steps if n]  # every long-enough context in the one call
+    assert gathers[0] == engine.dense_tail_attends == sum(max(0, 8 - n) for n in prompts)
+
+
+def test_flash_streams_match_jax_after_defrag():
+    """A mid-run ``defrag`` moves live pages to lower blocks and rewrites the
+    block tables; the flash attend then reads the moved pages in place and
+    both engines, defragmented at the same step, give the same streams."""
+    streams, moves = {}, {}
+    for pkg in (tsrv, jsrv):
+        engine = pkg.ServingEngine(_tiny(pkg, attend="flash", num_blocks=32))
+        reqs = [_req(pkg, "r0", 9, 2, seed=0), _req(pkg, "r1", 10, 3, seed=1),
+                _req(pkg, "r2", 14, 12, seed=2), _req(pkg, "r3", 12, 16, seed=3)]
+        for req in reqs:
+            assert engine.submit(req)
+        for i in range(60):
+            if i == 5:
+                before = {rid: list(t) for rid, t in engine.block_tables().items()}
+                moves[pkg.__name__] = engine.cache.defrag(engine.block_tables())
+                assert engine.block_tables() != before
+                engine.check_integrity()
+            if not engine.active:
+                break
+            engine.step(float(i))
+        streams[pkg.__name__] = {r.rid: list(r.tokens[len(r.prompt):]) for r in reqs}
+        prompts = {r.rid: r.prompt for r in reqs}
+    assert moves[tsrv.__name__] == moves[jsrv.__name__] > 0
+    _assert_same_streams(streams[tsrv.__name__], streams[jsrv.__name__],
+                         jsrv.ToyLM(heads=2, head_dim=8, max_context=64), prompts, "defrag")
+
+
 def test_batching_ab_matches_jax():
     """``test_serving.py:172-184``: identical outputs at admission width 1
     and max_batch, and more than twice the steps sequentially; the port's

@@ -1,13 +1,20 @@
 """The flash-attention kernels (``csrc/flash_attention.cu``,
-``csrc/flash_forward_sm90.cu``) and their plain PyTorch versions.
+``csrc/flash_forward_sm90.cu``, ``csrc/flash_forward_f32.cu``) and their
+plain PyTorch versions.
 
 - ``flash_attention_local`` replaces the Pallas TPU kernel
   ``_flash_full_kernel`` (``tpu_operator/workloads/longctx.py:47-150``):
-  the full forward, causal or not, returning out and the log-sum-exp.  It
-  runs one of three kernels, chosen per call by ``_forward_plan``: the
-  ``wgmma`` + TMA kernel for long prefills at D 64 and 128, a split over
-  the keys for short query tails against long caches (the decode), and the
-  ``mma.sync`` kernel for everything else;
+  the full forward, causal or not, returning out and the log-sum-exp.  On
+  bf16 q/k/v it runs one of three kernels, chosen per call by
+  ``_forward_plan``: the ``wgmma`` + TMA kernel for long prefills at D 64
+  and 128, a split over the keys for short query tails against long caches
+  (the decode), and the ``mma.sync`` kernel for everything else; f32 q/k/v
+  take the ``f32`` kernel;
+- ``flash_attention_paged`` is the same kernel's f32 entry as the serving
+  engine calls it: one decode row per (request, head) over the KV pool,
+  read in place through each request's block table, every request of a
+  decode step in one launch (the row that the reference's engine keeps of
+  its 8-row tail over gathered pages);
 - ``flash_block_update`` replaces ``_flash_block_kernel``
   (``tpu_operator/workloads/ring_attention.py:118-218``): one K/V block
   folded into the carried (m, l, o) state, in place.  bf16 q/k/v go to the
@@ -20,10 +27,11 @@
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.
 
-Both run ``online_softmax_block_update`` (``ring_attention.py:86-115``),
-whose plain version is here too.  Layout ``[BH, T, D]``; q, k, v bf16 or
-f32, the state f32.  A wrapper takes the plain version
-for tensors on the CPU and launches its kernel for tensors on a card.
+``flash_attention_local`` and ``flash_block_update`` run
+``online_softmax_block_update`` (``ring_attention.py:86-115``), whose plain
+version is here too.  Layout ``[BH, T, D]``; q, k, v bf16 or f32, the state
+f32.  A wrapper takes the plain version for tensors on the CPU and launches
+its kernel for tensors on a card.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ NEG_INF = -1e30  # large-negative instead of -inf: exp() of a fully masked
 # launches of each CUDA kernel in this process: a run shows it went through
 # the kernel by reading these before and after (chip_smoke.py sets them to 0)
 forward_launches = 0           # every path of the forward
-forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0}
+forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0, "paged_f32": 0}
+FORWARD_PATHS = ("wgmma", "split", "mma", "f32")  # what ``_flash_forward_on`` takes
 block_update_launches = 0      # the bf16 entry
 block_update_f32_launches = 0  # the f32 entry
 
@@ -56,6 +65,8 @@ MIN_SPLIT_TILES = 4       # tiles per split at least: one per warp of the block
 WGMMA_ROWS = 128          # query rows per block of the wgmma kernel
 WGMMA_HEAD_DIMS = (64, 128)
 FORWARD_DTYPES = (torch.bfloat16, torch.float32)  # f32: the serving engine's
+PAGED_SPLIT_PAGES = 32    # the paged kernel's pages per key split (512 keys at 16-token pages)
+PAGED_MAX_SPLITS = 32     # at most this many splits a row (their partials' scratch)
 
 
 def _block_div(t: int, want: int) -> int:
@@ -108,6 +119,16 @@ def _split_count(bh: int, tq: int, n_tiles: int, n_sm: int) -> int:
     return max(1, min(-(-2 * n_sm // row_blocks), n_tiles // MIN_SPLIT_TILES))
 
 
+def _paged_split_count(length: int, block_tokens: int) -> int:
+    """The paged kernel's key splits for a row of ``length`` keys: one per
+    ``PAGED_SPLIT_PAGES`` live pages, at least 1, at most
+    ``PAGED_MAX_SPLITS``.  A function of the row's own length only, so a
+    request's result never depends on the batch beside it; the kernel
+    computes the same count (``split_count`` in ``csrc/flash_forward_f32.cu``)."""
+    pages = -(-max(0, length) // block_tokens)
+    return max(1, min(PAGED_MAX_SPLITS, -(-pages // PAGED_SPLIT_PAGES)))
+
+
 def _update_warp_ranges(tq: int, tk: int, causal: bool, q_off: int, k_off: int) -> list:
     """The bf16 block update's cut of the keys: for each 16-row q tile (from row
     ``q0``), its live 64-key tiles (``_live_keys`` of its rows) cut into one
@@ -125,8 +146,9 @@ def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k
     """Which kernel runs a forward call, and over how many key ranges:
     ``(path, n_splits)``.
 
-    Every f32 call (``dtype``) takes ``f32``: the serving engine's pages.
-    A bf16 call takes:
+    Every f32 call (``dtype``) takes ``f32``, the contiguous f32 forward
+    (the serving engine calls ``flash_attention_paged`` instead).  A bf16
+    call takes:
 
     - ``split`` when the query side is a short tail (``tq <= SPLIT_ROWS``),
       the mma kernel's ``bh * ceil(tq / 64)`` blocks cannot fill the
@@ -250,6 +272,34 @@ def flash_attention_split_reference(q, k, v, causal, n_splits, q_off=0, k_off=0)
     return merge_partials(m[..., 0], l[..., 0], acc, q.dtype)
 
 
+def flash_attention_paged_reference(q, k_pool, v_pool, block_tables, lengths):
+    """The plain paged decode, request by request: request r's first
+    ``lengths[r]`` tokens gathered from the pools through its block table
+    (token p at ``pool[block_tables[r, p // block_tokens], p % block_tokens]``),
+    attended by its query row per head: out = softmax(q . K^T / sqrt(D)) V,
+    lse = log sum exp of the scores, in f32.  A request of length 0 gives
+    out 0 and lse exactly NEG_INF.  Entries of a table past its request's
+    live pages are never read.  Returns (out [R, H, D], lse [R, H])."""
+    r, h, d = q.shape
+    bt = k_pool.shape[1]
+    scale = 1.0 / math.sqrt(d)
+    out = torch.zeros((r, h, d), dtype=torch.float32, device=q.device)
+    lse = torch.full((r, h), NEG_INF, dtype=torch.float32, device=q.device)
+    for i, n in enumerate(lengths.tolist()):
+        if n <= 0:
+            continue
+        pages = block_tables[i, :-(-n // bt)].long()
+        k = k_pool[pages].reshape(-1, h, d)[:n].float()  # [L, H, D]
+        v = v_pool[pages].reshape(-1, h, d)[:n].float()
+        s = torch.einsum("hd,thd->ht", q[i].float(), k) * scale
+        m = s.amax(dim=-1, keepdim=True)
+        e = torch.exp(s - m)
+        l = e.sum(dim=-1, keepdim=True)
+        out[i] = torch.einsum("ht,thd->hd", e, v) / l
+        lse[i] = (m + torch.log(l))[:, 0]
+    return out, lse
+
+
 def flash_block_update_split_reference(q, k, v, q_off, k_off, m, l, o, causal):
     """The plain mirror of the split update's fold order: per 16-row q tile,
     each warp's range of live 64-key tiles (``_update_warp_ranges``) folded
@@ -348,7 +398,12 @@ _ENTRIES = {  # source -> {entry: argtypes}
         "tpu_flash_block_update_bf16": _UPDATE_ARGS,
     },
     "flash_forward_sm90": {"tpu_flash_forward_wgmma_bf16": _FORWARD_ARGS},
-    "flash_forward_f32": {"tpu_flash_forward_f32": _FORWARD_ARGS},
+    "flash_forward_f32": {
+        "tpu_flash_forward_f32": _FORWARD_ARGS,
+        # q, k_pool, v_pool, block_tables, lengths, out, lse, part, requests, heads, d,
+        # block_tokens, width, max_splits, split_pages, scale, stream
+        "tpu_flash_paged_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
+    },
     "flash_backward": {"tpu_flash_block_update_f32": _UPDATE_ARGS},
 }
 
@@ -411,8 +466,8 @@ def _flash_forward_on(path, q, k, v, causal=True, q_off=0, k_off=0, n_splits=Non
     if not _on_card(q):
         raise ValueError("_flash_forward_on launches a kernel: give it tensors on a card")
     _check_device(q, k, v)
-    if path not in forward_path_launches:
-        raise ValueError(f"no forward path {path!r}: one of {sorted(forward_path_launches)}")
+    if path not in FORWARD_PATHS:
+        raise ValueError(f"no forward path {path!r}: one of {sorted(FORWARD_PATHS)}")
     if n_splits is None:
         n_tiles = -(-_live_keys(q.shape[1], k.shape[1], causal, q_off, k_off) // SPLIT_TILE)
         n_splits = _split_count(q.shape[0], q.shape[1], n_tiles, _sm_count(q.device))
@@ -449,6 +504,78 @@ def _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits):
         raise RuntimeError(f"flash forward kernel ({path}) launch failed: cudaError {rc}")
     forward_launches += 1
     forward_path_launches[path] += 1
+    return out, lse
+
+
+def _check_paged(q, k_pool, v_pool, block_tables, lengths) -> None:
+    tensors = (q, k_pool, v_pool, block_tables, lengths)
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError("q, the pools, the block tables and the lengths on "
+                         f"{', '.join(str(t.device) for t in tensors)}: one device")
+    if not all(t.dtype == torch.float32 for t in (q, k_pool, v_pool)):
+        raise TypeError(f"the paged kernel takes float32 q and pools, got {q.dtype}, "
+                        f"{k_pool.dtype}, {v_pool.dtype}")
+    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
+        raise TypeError(f"block tables and lengths are int32, got {block_tables.dtype}, "
+                        f"{lengths.dtype}")
+    if q.dim() != 3 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, pools {tuple(k_pool.shape)}, "
+                         f"{tuple(v_pool.shape)}: expected [R, H, D] and two alike "
+                         "[num_blocks, block_tokens, H, D]")
+    r, h, d = q.shape
+    if tuple(k_pool.shape[2:]) != (h, d):
+        raise ValueError(f"q {tuple(q.shape)} and pools {tuple(k_pool.shape)} disagree on H or D")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d}: the paged kernel takes at most {MAX_HEAD_DIM}")
+    if block_tables.dim() != 2 or block_tables.shape[0] != r or tuple(lengths.shape) != (r,):
+        raise ValueError(f"block tables {tuple(block_tables.shape)} and lengths "
+                         f"{tuple(lengths.shape)}: expected [{r}, width] and [{r}]")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the paged kernel takes contiguous tensors")
+
+
+def flash_attention_paged(q, k_pool, v_pool, block_tables, lengths):
+    """Decode attention over a paged KV pool (kernel B5's paged f32 entry):
+    for each request r and head h, the query row ``q[r, h]`` against the
+    request's first ``lengths[r]`` tokens, read in place from ``k_pool`` and
+    ``v_pool`` ``[num_blocks, block_tokens, H, D]`` through its block table
+    (token p at ``pool[block_tables[r, p // block_tokens], p % block_tokens]``).
+    q and the pools f32, the tables ``[R, width]`` and lengths ``[R]`` int32,
+    all contiguous on one device; D at most 128.  The entries of a request's
+    live pages must name blocks of the pool (the engine's allocator's do);
+    entries past them are never read.  Returns (out [R, H, D], lse [R, H]),
+    f32; a request of length 0 gives out 0 and lse NEG_INF.
+
+    On a card one launch for the whole batch (and a second, small one that
+    merges the key splits when a row may have several: contexts past
+    ``PAGED_SPLIT_PAGES`` pages), on the current stream, not synchronized;
+    the lengths stay on the card (a length past ``width x block_tokens`` is
+    cut there).  Tensors on the CPU take the plain version."""
+    global forward_launches
+    _check_paged(q, k_pool, v_pool, block_tables, lengths)
+    if not _on_card(q):
+        return flash_attention_paged_reference(q, k_pool, v_pool, block_tables, lengths)
+    _check_device(q, k_pool, v_pool)
+    r, h, d = q.shape
+    bt, width = k_pool.shape[1], block_tables.shape[1]
+    max_splits = _paged_split_count(width * bt, bt)
+    out = torch.empty_like(q)
+    lse = torch.empty((r, h), dtype=torch.float32, device=q.device)
+    # one partial (acc[D], m, l) per (row, split), f32
+    part = (torch.empty(r * h * max_splits * (d + 2), dtype=torch.float32, device=q.device)
+            if max_splits > 1 else None)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bind("flash_forward_f32").tpu_flash_paged_f32(
+            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
+            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            part.data_ptr() if part is not None else None, r, h, d, bt, width, max_splits,
+            PAGED_SPLIT_PAGES, 1.0 / math.sqrt(d), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"paged flash forward kernel launch failed: cudaError {rc}")
+    forward_launches += 1
+    forward_path_launches["paged_f32"] += 1
     return out, lse
 
 

@@ -9,17 +9,20 @@ contract, result keys and snapshot layout.
 - :class:`ToyLM` — the reference's seeded model: its numpy draws, as torch
   tensors on the device.  Every projection pads its rows to one fixed count
   per call site (``prefill_budget`` for prefill chunks, ``max_batch`` for
-  the decode batch, the 8-row tail for the flash query), so each call site
-  runs one GEMM shape and a row's result never depends on the rows beside
-  it: the batch invariance that ``batching_ab`` asserts.  TF32 stays off.
-- Decode attention over KV gathered from the pool on the device: ``dense``,
-  the reference's length-masked einsum padded to ``max_batch`` x
-  ``max_context`` (plain torch ops: it is no Pallas kernel there); ``flash``,
-  per request, ``longctx.flash_attention_local`` (kernel B5's f32 path on a
-  card) over the 8-row query tail and the KV zero-padded to a page multiple,
-  with the reference's dense attend for a context shorter than the tail
-  (counted in ``ServingEngine.dense_tail_attends``).  A decode step moves no
-  KV across PCIe; it syncs with the host once, for the new token ids.
+  the decode batch), so each call site runs one GEMM shape and a row's
+  result never depends on the rows beside it: the batch invariance that
+  ``batching_ab`` asserts.  TF32 stays off.
+- Decode attention on the device, in one of two modes: ``dense``, the
+  reference's length-masked einsum over KV gathered from the pool and padded
+  to ``max_batch`` x ``max_context`` (plain torch ops: it is no Pallas
+  kernel there); ``flash``, one ``flash_attention_paged`` call for the whole
+  step (kernel B5's paged f32 entry on a card), which reads each request's
+  pages in place through its block table with the query of its last token:
+  the row the reference keeps of its per-request flash call over an 8-row
+  tail.  A context shorter than that tail takes the dense attend, as in the
+  reference (counted in ``ServingEngine.dense_tail_attends``).  A decode
+  step moves no KV across PCIe; it syncs with the host once, for the new
+  token ids.
 - :class:`PoissonTraffic`, :func:`serve` (the replica main loop, which
   checkpoints the whole serving state through ``workloads/checkpoint.py`` on
   the migrate signal and exits 0), :func:`batching_ab` (sequential vs
@@ -84,7 +87,7 @@ _RATE_WINDOW_S = 5.0
 # minimum evidence span before a rolling rate is reported
 _RATE_MIN_SPAN_S = 0.5
 
-FLASH_TAIL = 8  # query rows of the flash attend: the reference's decode tail
+FLASH_TAIL = 8  # the reference's flash query tail: a shorter context takes the dense attend
 NEG_INF = -1e30
 
 
@@ -650,36 +653,35 @@ class ServingEngine:
         return dense_attend(q, k, v, lengths)[:len(reqs)]
 
     def _attend_flash(self, reqs: list, qs: torch.Tensor) -> torch.Tensor:
-        """Per request, ``longctx.flash_attention_local`` (kernel B5's f32
-        path on a card) with the 8-row query tail over gathered KV
-        zero-padded to a block multiple: padded keys sit past every query,
-        so causal masking drops them."""
-        from tpu_operator_torch.workloads import longctx
+        """One ``flash_attention_paged`` call (kernel B5's paged f32 entry on a
+        card) for the whole step: each request's last-token query ``qs[i]``
+        against its first ``len(tokens)`` cached tokens, read in place from
+        the pool through its block table.  That is the last row of the
+        reference's per-request flash call, whose 8-row causal tail ends at
+        the same position and sees the same keys.  The step's lengths and
+        tables reach the card as one int32 tensor.  A context shorter than
+        the tail takes the dense attend (``dense_tail_attends``) and rides
+        the launch as a row of length 0; a step whose contexts are all
+        shorter launches nothing."""
+        from tpu_operator_torch.kernels import flash_attention as fa
 
-        tail = FLASH_TAIL
         cfg = self.cfg
-        out = torch.zeros((len(reqs), cfg.heads, cfg.head_dim), device=self.device)
-        for i, req in enumerate(reqs):
-            length = len(req.tokens)
-            if length < tail:
-                # a context shorter than the query tail: the dense attend
-                self.dense_tail_attends += 1
-                out[i] = self._attend_dense([req], qs[i:i + 1])[0]
-                continue
-            pad = cfg.block_tokens * math.ceil(length / cfg.block_tokens)
-            gk, gv = self.cache.gather(req.blocks, length, pad_to=pad)
-            # [T, H, D] -> merged [BH=H, T, D]
-            km = gk.transpose(0, 1).contiguous()
-            vm = gv.transpose(0, 1).contiguous()
-            qt, _, _ = self.model.qkv(req.tokens[length - tail:length],
-                                      range(length - tail, length), rows=tail)
-            qm = qt.transpose(0, 1).contiguous()
-            o, _ = longctx.flash_attention_local(
-                qm, km, vm, causal=True,
-                block_k=cfg.block_tokens, block_q=tail,
-                q_off=length - tail,
-            )
-            out[i] = o[:, -1, :]
+        n = len(reqs)
+        lengths = [len(req.tokens) for req in reqs]
+        short = [i for i, length in enumerate(lengths) if length < FLASH_TAIL]
+        if len(short) == n:
+            out = torch.zeros((n, cfg.heads, cfg.head_dim), device=self.device)
+        else:
+            width = cfg.max_context // cfg.block_tokens
+            ids = [0 if length < FLASH_TAIL else length for length in lengths]
+            for req in reqs:
+                ids += req.blocks + [0] * (width - len(req.blocks))
+            ids = torch.tensor(ids, dtype=torch.int32).to(self.device, non_blocking=True)
+            out, _ = fa.flash_attention_paged(qs, self.cache.k, self.cache.v,
+                                              ids[n:].view(n, width), ids[:n])
+        for i in short:
+            self.dense_tail_attends += 1
+            out[i] = self._attend_dense([reqs[i]], qs[i:i + 1])[0]
         return out
 
     def _decode(self, now: float) -> int:
