@@ -11,8 +11,9 @@ commit's tree) or of this one: two trees compare on one card in one call.
 The first drives the port's main paths, the node readiness gate, the long-context
 attention checks, the post-ready perf probes, training, the parallelism
 census, the multi-host program, the serving engine, the migratable
-training job, the warm pool of kernel libraries, the node validator, the
-partition acceptance and the validator's multi-host branch, the way the
+training job, the warm pool of kernel libraries, the node's card-facing
+agents (device plugin, feature discovery, metrics agent, health), the node
+validator, the partition acceptance and the validator's multi-host branch, the way the
 validator and the migration drain run them, and holds every kernel on those
 paths
 against its plain PyTorch version.  Phases, each fatal on failure:
@@ -96,10 +97,26 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    compile_s); in both the build dir holds every library and vector-add
    ran on B1, equal to its plain version; prints both runs and the
    libraries' sizes
-12. validator — the node validator (``tpu_operator_torch/validator``) on the
+12. agents   — the node's card-facing agents in-process, no gRPC, aiohttp
+   or prometheus_client: NVML's inventory (its count that of nvidia-smi -L
+   and of CUDA, every UUID CUDA's; prints the /dev nodes and the minors);
+   the device plugin (every card Healthy; the gate child, ``run_validation``
+   with vector-add under exactly one card's allocation env: rc 0, B1
+   launched, max_error 0.0; a child under that env sees one card, the
+   allocated UUID, and on 2 or more cards one under the last card's sees
+   only it); feature discovery (product, chips per host, 80 GB on an H100
+   80GB, the driver's version); the metrics agent's ``card_counters`` while
+   B2 copies a 1 GiB buffer for at least 2 s (duty cycle above 50 %, memory
+   in use up by at least the buffers, no scrape error, one series per
+   card), and on 2 or more cards the NVLink counters across an NCCL
+   allreduce (or a line that the card does not support them); the health
+   assessor ``ok`` and the validator's metrics mode counting every card;
+   prints the phase's wall time and the child gate's
+13. validator — the node validator (``tpu_operator_torch/validator``) on the
    card in-process, under a fresh TPU_VALIDATION_ROOT: libtpu (the driver
    library found, ``chips`` the card count), pjrt (the CUDA runtime's count
-   equal to the host's), plugin-ready written by hand (no apiserver), jax
+   equal to the host's), plugin-ready from the count the port's device
+   plugin advertises (no apiserver), jax
    (in-process: B1 launched, vector-add's max_error 0) and perf (every
    probe ok and run, one card's ring skip the reference's own; B2 launched,
    B3 on more than one card); then the gate pod's contract without an
@@ -108,11 +125,11 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    drop-box holding the allreduce figures, and on more than one card the
    busbw floor armed from the NVLink catalogue and cleared; prints the card
    counts of nvidia-smi -L, /dev and CUDA, and each component's wall time
-13. partition — the partition acceptance on the cards: two units of half
+14. partition — the partition acceptance on the cards: two units of half
    the cards each (CUDA_VISIBLE_DEVICES), each burn-in exactly equal to its
    solo run, the trajectories independent, each unit seeing its own cards;
    on one card one unit, solo against the barrier run
-14. slice    — the validator's multi-host branch: on 2 or more cards the
+15. slice    — the validator's multi-host branch: on 2 or more cards the
    validators of a two-host slice (worker 0 and 1, half the cards each by
    CUDA_VISIBLE_DEVICES) run jax, then perf, at once in one event loop
    against a dict-backed stand-in apiserver whose kubelet runs each
@@ -126,7 +143,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    drop-box, its pods at the cross-slice floor); on one card one line says
    why nothing runs (NCCL refuses two ranks on one card); prints each
    validator's wall and each pod's elapsed_s
-15. kernel   — each kernel against its plain version on the card: the add
+16. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -168,7 +185,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    pool in random order): the same tolerances, each case launched twice
    and bit-identical, and its first and last request alone the same bits
    as their rows in the batch
-16. timing   — CUDA-event medians of each kernel, its plain version and the
+17. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -240,6 +257,10 @@ OUT_TOL = 2e-2             # the checks' max_error: bf16 output, the reference's
 KERNEL_OUT_RTOL = 1e-2     # kernel vs plain: max|out - plain| / max|plain|, per case
 STATE_RTOL = 1e-5          # m, l, lse: f32 sums in another order
 F32_RTOL = 1e-4            # f32 kernels vs plain: max|out - plain| / max|plain|, per output
+AGENTS_BUFFER = (524288, 512)  # 1 GiB of f32: B2's load under the metrics agent's sample
+AGENTS_LOAD_S = 3.0        # the load queued; NVML's utilization covers up to its last second
+AGENTS_MIN_LOAD_S = 2.0
+AGENTS_MIN_DUTY = 50.0     # percent, on the loaded card
 
 
 def require(cond: bool, msg: str) -> None:
@@ -907,13 +928,234 @@ def _card_lines() -> list:
     ).stdout.splitlines() if line.startswith("GPU ")]
 
 
+def _uuid(value) -> str:
+    """A card's UUID as NVML writes it: CUDA's properties give the hex
+    groups without the "GPU-"."""
+    text = str(value)
+    return text if text.startswith("GPU-") else "GPU-" + text
+
+
+# the gate child: run_validation's entry point, then B1's launches in it
+_GATE_CHILD = """
+import json, sys
+from tpu_operator_torch.kernels import vector_add as va
+from tpu_operator_torch.workloads import run_validation
+rc = run_validation.main()
+print(json.dumps({"vector_add_launches": va.launches}))
+sys.exit(rc)
+"""
+_SEE_CHILD = """
+import json, torch
+print(json.dumps({"count": torch.cuda.device_count(),
+                  "uuid": str(torch.cuda.get_device_properties(0).uuid)}))
+"""
+
+
+def _allocation_child(code: str, alloc_env: dict, root: str, **extra) -> tuple:
+    """``code`` in a fresh process under an allocation's env, as a container
+    the kubelet starts with it; returns (process, JSON lines, wall s)."""
+    env = _subprocess_env(root, **extra)
+    for key in ("CUDA_VISIBLE_DEVICES", "NVIDIA_VISIBLE_DEVICES", "TORCH_DEVICE",
+                "DIST_CPU_RANKS", "TPU_HW_ROOT", "LIBCUDA_PATH"):
+        env.pop(key, None)
+    env.update(alloc_env)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                          text=True, timeout=600)
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    return proc, lines, time.perf_counter() - t0
+
+
+def agents_phase(n_cards: int, root: str, name: str) -> dict:
+    """The node's card-facing agents in-process on the cards, with none of
+    gRPC, aiohttp or prometheus_client: NVML's inventory against nvidia-smi
+    and CUDA; the device plugin's health, and its allocation of one card
+    driving the gate child (B1) and a child that must see exactly that card
+    (and the last card's on 2 or more); feature discovery's labels; the
+    metrics agent's counters under B2's load, and the NVLink counters across
+    an NCCL allreduce on 2 or more cards; the health assessor and the
+    validator's metrics mode.  Returns B1's launches (in the gate child) and
+    B2's."""
+    import torch
+
+    from tpu_operator_torch import consts, hw, nvml
+    from tpu_operator_torch.agents import feature_discovery, metrics_agent
+    from tpu_operator_torch.agents.node_status_exporter import HealthAssessor
+    from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin, PluginConfig
+    from tpu_operator_torch.k8s import nodeinfo
+    from tpu_operator_torch.kernels import dma_pipeline as dp
+    from tpu_operator_torch.validator import status
+    from tpu_operator_torch.validator.metrics import NodeMetrics
+
+    t_phase = time.perf_counter()
+    os.makedirs(os.path.join(root, "validations"))
+    os.environ["TPU_VALIDATION_ROOT"] = root
+
+    # the inventory
+    inv = nvml.inventory()
+    smi = _card_lines()
+    cuda_uuids = [_uuid(torch.cuda.get_device_properties(i).uuid) for i in range(n_cards)]
+    print(f"agents: NVML {len(inv.cards)} card(s), driver {inv.driver_version}, CUDA "
+          f"{inv.cuda_version}: " + "; ".join(
+              f"index {c.index} {c.uuid} minor {c.minor} {c.name}" for c in inv.cards)
+          + f"; CUDA's order {cuda_uuids}; /dev card nodes "
+          f"{[os.path.basename(p) for p in hw.card_device_paths()]}", flush=True)
+    require(len(inv.cards) == len(smi) == torch.cuda.device_count() == n_cards,
+            f"NVML lists {len(inv.cards)} cards, nvidia-smi {len(smi)}, CUDA "
+            f"{torch.cuda.device_count()}")
+    require(sorted(c.uuid for c in inv.cards) == sorted(cuda_uuids)
+            and all(c.uuid in " ".join(smi) for c in inv.cards),
+            f"NVML's UUIDs {[c.uuid for c in inv.cards]}, CUDA's {cuda_uuids}, smi {smi}")
+    index_of = {c.uuid: c.index for c in inv.cards}
+
+    # the device plugin, in process
+    plugin = GPUDevicePlugin(PluginConfig(kubelet_dir=os.path.join(root, "kubelet")))
+    plugin.refresh_devices()
+    advertised = plugin.snapshot()
+    print(f"agents: the plugin advertises {advertised}", flush=True)
+    require(len(advertised) == n_cards and all(h == "Healthy" for _, h in advertised),
+            f"the plugin advertises {advertised} for {n_cards} cards")
+    by_index = sorted(plugin.devices.values(), key=lambda c: c.index)
+    first, last = by_index[0], by_index[-1]
+    alloc = plugin.allocate([first.uuid])
+    print(f"agents: Allocate([{first.uuid}]) -> {alloc}", flush=True)
+    require(alloc["envs"]["CUDA_VISIBLE_DEVICES"] == first.uuid
+            and any(host.endswith(f"/nvidia{first.minor}") for _, host, _ in alloc["devices"]),
+            f"the allocation of {first.uuid}: {alloc}")
+    proc, lines, gate_s = _allocation_child(
+        _GATE_CHILD, alloc["envs"], os.path.join(root, "gate"), WORKLOAD_CHECKS="vector-add",
+        EXPECTED_DEVICES="1", DEVICE_COUNT_GATE_BACKENDS="cuda")
+    by_check = {line.get("check"): line for line in lines}
+    b1 = next((line["vector_add_launches"] for line in lines if "vector_add_launches" in line), 0)
+    print(f"agents: the gate child under the allocation: rc={proc.returncode} in {gate_s:.2f}s "
+          f"wall, {lines}", flush=True)
+    require(proc.returncode == 0, f"the gate child failed: {proc.stderr[-3000:]}")
+    vector_add = by_check.get("vector-add", {})
+    require(vector_add.get("max_error") == 0.0 and vector_add.get("backend") == "cuda" and b1 > 0,
+            f"vector-add in the gate child: {vector_add}, B1 launches {b1}")
+    seen = {}
+    for card in ([first, last] if n_cards > 1 else [first]):
+        env = plugin.allocate([card.uuid])["envs"]
+        proc, lines, _ = _allocation_child(_SEE_CHILD, env, os.path.join(root, "see"))
+        require(proc.returncode == 0 and lines, f"the child under {env}: {proc.stderr[-3000:]}")
+        seen[card.uuid] = lines[0]
+        require(lines[0]["count"] == 1 and _uuid(lines[0]["uuid"]) == card.uuid,
+                f"the child under {card.uuid}'s allocation sees {lines[0]}")
+    print(f"agents: children under one card's allocation see {seen}", flush=True)
+
+    if n_cards > 1:
+        levels = nvml.topology([c.uuid for c in inv.cards])
+        pick = plugin.preferred_allocation([c.uuid for c in inv.cards], [], 2)
+        named = {"-".join(str(index_of[u]) for u in sorted(pair, key=index_of.get)):
+                 nvml.TOPOLOGY_LEVELS.get(level, level) for pair, level in levels.items()}
+        print(f"agents: PCIe common ancestors {named or 'not reported by this driver'}; "
+              f"the preferred pair {[index_of[u] for u in pick]}", flush=True)
+
+    # feature discovery
+    labels = feature_discovery.discover_features({"metadata": {"labels": {}}})
+    print(f"agents: feature labels {labels}", flush=True)
+    require(labels[consts.GPU_PRODUCT_LABEL] == name.replace(" ", "-")
+            and labels[consts.TFD_CHIPS_PER_HOST_LABEL] == str(n_cards)
+            and labels[consts.TFD_CHIP_LABEL] == nodeinfo.generation_of(name)
+            and ("H100 80GB" not in name or labels[consts.TFD_HBM_GB_LABEL] == "80")
+            and labels[consts.TFD_RUNTIME_VERSION_LABEL].startswith(inv.driver_version + "-"),
+            f"feature labels {labels} for {n_cards} x {name}")
+
+    # the metrics agent under B2's load, on CUDA's card 0
+    mine = index_of[cuda_uuids[0]]
+    errors = {}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = metrics_agent.card_counters(errors)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn(AGENTS_BUFFER, device="cuda", generator=gen)
+    _, chunk, slots = DMA_PROBE
+    dp.launches = 0
+    out = dp.dma_pipeline_copy(x, 16, chunk, slots)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = dp.dma_pipeline_copy(x, 16, chunk, slots)
+    end.record()
+    torch.cuda.synchronize()
+    launch_ms = start.elapsed_time(end)
+    buffers = 2 * x.numel() * x.element_size()
+    t0 = time.perf_counter()
+    for _ in range(math.ceil(AGENTS_LOAD_S * 1e3 / launch_ms)):
+        out = dp.dma_pipeline_copy(x, 16, chunk, slots)
+    time.sleep(1.2)  # NVML's utilization: the last sample period, up to a second
+    t_sample = time.perf_counter() - t0
+    during = metrics_agent.card_counters(errors)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    require(torch.equal(out, x), "B2's copy under the load differs from its input")
+    b2 = dp.launches
+    del x, out
+    duty = during[mine]["tpu_duty_cycle_percent"]
+    rise = during[mine]["tpu_hbm_memory_usage_bytes"] - before[mine]["tpu_hbm_memory_usage_bytes"]
+    text = metrics_agent.to_prometheus({"chips": during})
+    print(f"agents: B2 load {load_s:.2f}s ({b2} launches of {launch_ms:.3f} ms, 16 passes over "
+          f"1 GiB each), sampled at {t_sample:.2f}s: card {mine} duty cycle {duty!r} %, memory "
+          f"in use {before[mine]['tpu_hbm_memory_usage_bytes']!r} -> "
+          f"{during[mine]['tpu_hbm_memory_usage_bytes']!r} bytes (+{rise!r}, buffers {buffers}), "
+          f"scrape errors {errors}; counters {during}", flush=True)
+    require(load_s >= AGENTS_MIN_LOAD_S and t_sample < load_s,
+            f"the load lasted {load_s:.2f}s, sampled at {t_sample:.2f}s")
+    require(duty > AGENTS_MIN_DUTY, f"duty cycle {duty} % under B2's load")
+    require(rise >= buffers, f"memory in use rose {rise} bytes for {buffers} of buffers")
+    require(not errors and all(c["tpu_chip_scrape_errors_total"] == 0.0 for c in during.values()),
+            f"scrape errors {errors}")
+    require(text.count("tpu_duty_cycle_percent{") == n_cards
+            and text.count("tpu_hbm_memory_total_bytes{") == n_cards,
+            f"to_prometheus: not one series per card:\n{text}")
+    if n_cards > 1:
+        supported = ["nvlink_tx_bytes" in nvml.sample(c) for c in inv.cards]
+        if not all(supported):
+            print(f"agents: NVLink data counters unsupported on this machine ({supported})",
+                  flush=True)
+        else:
+            import torch.cuda.nccl
+
+            tensors = [torch.ones(64 << 20, device=f"cuda:{i}") for i in range(n_cards)]
+            nv0 = metrics_agent.card_counters(errors)
+            for _ in range(5):
+                torch.cuda.nccl.all_reduce(tensors)
+            for i in range(n_cards):
+                torch.cuda.synchronize(i)
+            nv1 = metrics_agent.card_counters(errors)
+            moved = {i: (nv1[i]["tpu_ici_transmitted_bytes_total"]
+                         - nv0[i]["tpu_ici_transmitted_bytes_total"],
+                         nv1[i]["tpu_ici_received_bytes_total"]
+                         - nv0[i]["tpu_ici_received_bytes_total"]) for i in nv1}
+            print(f"agents: NVLink data bytes (TX, RX) across 5 NCCL allreduces of 256 MiB "
+                  f"per card: {moved}", flush=True)
+            require(all(tx > 0 and rx > 0 for tx, rx in moved.values()),
+                    f"NVLink counters did not rise across the allreduce: {moved}")
+            del tensors
+
+    # the health assessor and the validator's metrics mode
+    status.write_ready("plugin", {"allocatable": len(advertised)})
+    verdict = HealthAssessor().assess({"chips": during})
+    metrics = NodeMetrics(node_name="chip-smoke")
+    metrics.scrape()
+    print(f"agents: health {verdict}; metrics mode device_count {metrics.device_count}, "
+          f"status {metrics.validation_status}", flush=True)
+    require(verdict == (consts.HEALTH_OK, ""), f"the health assessor says {verdict}")
+    require(metrics.device_count == n_cards, f"metrics mode counts {metrics.device_count}")
+    wall = time.perf_counter() - t_phase
+    smi_power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"agents: phase wall {wall:.2f}s, gate child {gate_s:.2f}s on {smi_power}", flush=True)
+    return {"vector_add": b1, "dma_pipeline_copy": b2}
+
+
 def validator_phase(n_cards: int, root: str, name: str) -> dict:
     """The node validator (``tpu_operator_torch/validator``) in-process on
     the card, as the validator DaemonSet runs it without a workload pod,
     under a fresh TPU_VALIDATION_ROOT at ``root``: libtpu (the driver
     library, ``chips`` the card count), pjrt (the runtime's count equal to
-    the host's), plugin-ready written by hand (no apiserver here), jax
-    (in-process, B1 launched, vector-add's max_error 0), perf (every probe
+    the host's), plugin-ready from the count the port's device plugin
+    advertises in process (no apiserver here), jax (in-process, B1 launched, vector-add's max_error 0), perf (every probe
     ok and run; one card's ring is the reference's own skip; B2 launched,
     and B3 on more than one card).  Then the gate pod's contract without an
     apiserver: the pod ``_workload_pod`` builds (``nvidia.com/gpu`` in its
@@ -926,7 +1168,8 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
 
     import torch
 
-    from tpu_operator_torch import consts, hw
+    from tpu_operator_torch import consts, hw, nvml
+    from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin, PluginConfig
     from tpu_operator_torch.k8s import nodeinfo
     from tpu_operator_torch.kernels import dma_pipeline as dp
     from tpu_operator_torch.kernels import flash_attention as fa
@@ -945,16 +1188,16 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
     os.environ["TPU_VALIDATION_ROOT"] = root
     if len(nodes) != len(cards):
         # this machine's /dev disagrees with the cards it was given: a
-        # synthetic /dev matching nvidia-smi -L, with the machine's driver
-        # library, for this phase only
+        # synthetic /dev of one node per card NVML lists (by its minor
+        # number), with the machine's driver library, for this phase only
         dev = os.path.join(root, "hw", "dev")
         os.makedirs(dev)
-        for i in range(len(cards)):
-            open(os.path.join(dev, f"nvidia{i}"), "w").close()
+        for card in nvml.inventory().cards:
+            open(os.path.join(dev, f"nvidia{card.minor}"), "w").close()
         os.environ["TPU_HW_ROOT"] = os.path.join(root, "hw")
         os.environ["LIBCUDA_PATH"] = libcuda
         print(f"validator: /dev holds {len(nodes)} card nodes for {len(cards)} cards: "
-              f"TPU_HW_ROOT is a synthetic /dev of {len(cards)} for this phase", flush=True)
+              f"TPU_HW_ROOT is a synthetic /dev of NVML's minors for this phase", flush=True)
     v = components.Validator(components.ValidatorConfig(
         node_name="", with_workload=False, platform="cuda", sleep_interval=0.1,
         resource_retries=3, workload_retries=3))
@@ -972,7 +1215,11 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
         pjrt = run("pjrt")
         require(pjrt["device_count"] == pjrt["host_chips"] == n_cards
                 and pjrt["device_kind"] == name, f"pjrt-ready {pjrt}")
-        status.write_ready("plugin", {"allocatable": n_cards})
+        plugin = GPUDevicePlugin(PluginConfig(kubelet_dir=os.path.join(root, "kubelet")))
+        plugin.refresh_devices()
+        allocatable = sum(health == "Healthy" for _, health in plugin.snapshot())
+        require(allocatable == n_cards, f"the device plugin advertises {plugin.snapshot()}")
+        status.write_ready("plugin", {"allocatable": allocatable})
         va.launches = 0
         gate = run("jax")
         b1 = va.launches
@@ -1328,6 +1575,7 @@ def _run_slice(root: str, hosts: dict, name: str, multislice: bool) -> dict:
             await kubelet.close()
 
     os.environ["TPU_VALIDATION_ROOT"] = root
+    # written by hand: the stand-in apiserver's kubelet runs no device plugin
     status.write_ready("plugin")
     status.write_ready = record
     try:
@@ -2390,6 +2638,7 @@ def main() -> int:
     migration_phase(count)
     warm = warmpool_phase(count)
     with tempfile.TemporaryDirectory(prefix="chip-smoke-validator-") as root:
+        agents = agents_phase(count, os.path.join(root, "agents"), name)
         validator = validator_phase(count, os.path.join(root, "validator"), name)
         partition_phase(count, os.path.join(root, "partition"))
         slice_phase(count, root, name)
@@ -2416,9 +2665,10 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/vector_add.cu",
         "replaces": "tpu_operator/workloads/collectives.py:96",
-        "launches": launches + warm["launches"] + validator["vector_add"],
+        "launches": launches + warm["launches"] + validator["vector_add"] + agents["vector_add"],
         "launches_by_check": {"vector-add": launches, "warm-pool": warm["launches"],
-                              "validator": validator["vector_add"]},
+                              "validator": validator["vector_add"],
+                              "agents": agents["vector_add"]},
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
@@ -2457,7 +2707,9 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/dma_pipeline.cu",
         "replaces": "tpu_operator/workloads/hbm_pallas.py:48",
-        "launches": dma_launches + validator["dma_pipeline_copy"],
+        "launches": dma_launches + validator["dma_pipeline_copy"] + agents["dma_pipeline_copy"],
+        "launches_by_check": {"hbm-dma": dma_launches, "validator": validator["dma_pipeline_copy"],
+                              "agents": agents["dma_pipeline_copy"]},
         "max_abs_err": dma_err,
         **entry(dt[1]),
         "library_note": dt[1]["library_note"],

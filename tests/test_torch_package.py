@@ -59,7 +59,12 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "kernels.dma_pipeline", "kernels._build",
                    "k8s.nodeinfo", "obs.flight", "validator.status",
                    "hw", "k8s.client", "obs.events", "validator.components",
-                   "validator.cli", "workloads.partition_acceptance"):
+                   "validator.cli", "workloads.partition_acceptance",
+                   "nvml", "obs.logging", "deviceplugin.plugin", "deviceplugin.rpc",
+                   "deviceplugin.api_pb2", "deviceplugin.sliceconfig", "agents.base",
+                   "agents.feature_discovery", "agents.metrics_agent",
+                   "agents.metrics_exporter", "agents.node_status_exporter",
+                   "validator.metrics"):
         assert f"tpu_operator_torch.{module}" in names.split(",")
     assert leaked == "LEAKED []"
 

@@ -675,8 +675,10 @@ def test_cli_cleanup_and_wait_only(validation_root):
     done = _cli("--cleanup-all", root=validation_root)
     assert done.returncode == 0 and "removed 1 status files" in done.stderr
     assert not jstatus.is_ready("libtpu")
+    # the metrics mode runs (tests/test_torch_agents.py serves its gauges);
+    # on a host without NVML it fails, naming the library
     metrics = _cli("--component", "metrics", "--oneshot", root=validation_root)
-    assert metrics.returncode == 2 and "not ported" in metrics.stderr
+    assert metrics.returncode == 1 and "libnvidia-ml.so.1" in metrics.stderr
     assert _cli(root=validation_root).returncode == 2
 
 

@@ -66,3 +66,20 @@ TFD_SLICE_WORKER_ID_LABEL = "tpu.google.com/tpu.slice.worker-id"
 TFD_RUNTIME_VERSION_LABEL = "tpu.google.com/tpu.runtime.version"
 MULTISLICE_GROUP_LABEL = "tpu.google.com/multislice-group"
 MULTISLICE_SLICES_LABEL = "tpu.google.com/multislice-slices"
+
+# ---------------------------------------------------------------------------
+# The node agents (deviceplugin/, agents/, validator/metrics.py): the
+# reference's label, annotation, env and size values, so the unchanged
+# operator's health engine, slice scheduler and fleet ingest read what the
+# port's agents publish.
+TFD_CHIP_LABEL = "tpu.google.com/tpu.chip"                  # the card's generation
+TFD_CHIPS_PER_HOST_LABEL = "tpu.google.com/tpu.chips-per-host"
+TFD_HBM_GB_LABEL = "tpu.google.com/tpu.memory.hbm-gb"
+TFD_ICI_TOPOLOGY_LABEL = "tpu.google.com/tpu.ici.topology"
+TFD_SLICE_HOSTS_LABEL = "tpu.google.com/tpu.slice.hosts"
+TPU_HEALTH_LABEL = "tpu.google.com/tpu-health"              # ok | unhealthy
+TPU_HEALTH_REASON_ANNOTATION = "tpu.google.com/tpu-health-reason"
+HEALTH_OK = "ok"
+HEALTH_UNHEALTHY = "unhealthy"
+FLEET_PUSH_ENV = "TPU_FLEET_PUSH_URL"   # the metrics agent forwards /push traffic here
+PUSH_MAX_BYTES = 256 * 1024             # the agent's /push body cap

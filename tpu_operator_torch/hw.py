@@ -67,8 +67,8 @@ def chip_count() -> int:
 
 
 # where distributions and the GPU operator's driver container put the
-# driver's library, relative to the host root
-_LIBCUDA_DIRS = (
+# driver's libraries, relative to the host root
+_DRIVER_LIB_DIRS = (
     "usr/lib/x86_64-linux-gnu",
     "usr/lib64",
     "usr/lib/aarch64-linux-gnu",
@@ -77,26 +77,38 @@ _LIBCUDA_DIRS = (
     "home/kubernetes/bin/nvidia/lib64",
     "usr/local/nvidia/lib64",
 )
-# the driver installs libcuda.so.<driver version>; libcuda.so.1 is the
-# loader's link to it, which a container may carry elsewhere or not at all
-_LIBCUDA_FILE = re.compile(r"libcuda\.so\.[0-9][0-9.]*")
 
 
-def libcuda_path() -> str:
-    """LIBCUDA_PATH env override → the driver's library under its usual
-    install locations beneath the hardware root (``libcuda.so.1`` first,
-    else the versioned file it links to); "" when no driver is installed."""
-    env = os.environ.get("LIBCUDA_PATH")
-    if env and os.path.exists(env):
-        return env
+def _driver_library(stem: str) -> str:
+    """The driver's library ``<stem>.so.1`` under its usual install
+    locations beneath the hardware root, else the versioned file
+    ``<stem>.so.<driver version>`` the driver installs (``.so.1`` is the
+    loader's link to it, which a container may carry elsewhere or not at
+    all); "" when neither is there."""
     root = hw_root()
-    for rel in _LIBCUDA_DIRS:
-        path = os.path.join(root, rel, "libcuda.so.1")
+    for rel in _DRIVER_LIB_DIRS:
+        path = os.path.join(root, rel, stem + ".so.1")
         if os.path.exists(path):
             return path
-    for rel in _LIBCUDA_DIRS:
-        versioned = sorted(p for p in glob.glob(os.path.join(root, rel, "libcuda.so.*"))
-                           if _LIBCUDA_FILE.fullmatch(os.path.basename(p)))
+    versioned_name = re.compile(re.escape(stem) + r"\.so\.[0-9][0-9.]*")
+    for rel in _DRIVER_LIB_DIRS:
+        versioned = sorted(p for p in glob.glob(os.path.join(root, rel, stem + ".so.*"))
+                           if versioned_name.fullmatch(os.path.basename(p)))
         if versioned:
             return versioned[-1]
     return ""
+
+
+def libcuda_path() -> str:
+    """LIBCUDA_PATH env override → the driver's CUDA library beneath the
+    hardware root; "" when no driver is installed."""
+    env = os.environ.get("LIBCUDA_PATH")
+    if env and os.path.exists(env):
+        return env
+    return _driver_library("libcuda")
+
+
+def libnvml_path() -> str:
+    """The driver's management library (NVML) beneath the hardware root,
+    found as :func:`libcuda_path` finds ``libcuda``; "" when absent."""
+    return _driver_library("libnvidia-ml")

@@ -1,5 +1,5 @@
 """The bounded per-step phase vocabulary and the workload side of step-phase
-attribution: own copy of the constants, ``StepTimer`` and
+attribution: own copy of the constants, ``clean_steps``, ``StepTimer`` and
 ``FileStepBarrier`` in ``tpu_operator/obs/profile.py`` (the only phase
 labels a step window may carry; the operator's profile plane pins
 membership on the same names)."""
@@ -36,6 +36,9 @@ BARRIER_TIMEOUT_ENV = "TPU_STEP_BARRIER_TIMEOUT_S"
 # free-ran (markers are one tiny file each, GC'd as the rank advances)
 REPLAY_WINDOW_STEPS = 8192
 
+# step windows per check per push (the metrics agent's cap)
+MAX_STEPS_PER_PUSH = 128
+
 
 def _finite(value) -> Optional[float]:
     if isinstance(value, bool) or not isinstance(value, (int, float)):
@@ -44,6 +47,43 @@ def _finite(value) -> Optional[float]:
     if not math.isfinite(v) or v < 0.0:
         return None
     return v
+
+
+def clean_steps(steps, limit: int = MAX_STEPS_PER_PUSH) -> list[dict]:
+    """Validate/normalize a pushed step-window list onto the canonical
+    entry shape ``{step_seq, host, wall_s, phases}`` — the shared gate the
+    agent hop and the fleet ingest both apply, so a malformed or
+    vocabulary-busting entry is dropped at the first hop it touches."""
+    out: list[dict] = []
+    if not isinstance(steps, (list, tuple)):
+        return out
+    for entry in steps:
+        if len(out) >= limit:
+            break
+        if not isinstance(entry, dict):
+            continue
+        try:
+            seq = int(entry.get("step_seq"))
+        except (TypeError, ValueError):
+            continue
+        wall = _finite(entry.get("wall_s"))
+        if seq < 0 or wall is None:
+            continue
+        host = str(entry.get("host") or "")[:64]
+        phases = entry.get("phases") or {}
+        clean_phases: dict[str, float] = {}
+        if isinstance(phases, dict):
+            for name in STEP_PHASES:
+                v = _finite(phases.get(name))
+                if v is not None:
+                    clean_phases[name] = round(v, 6)
+        out.append({
+            "step_seq": seq,
+            "host": host,
+            "wall_s": round(wall, 6),
+            "phases": clean_phases,
+        })
+    return out
 
 
 class StepTimer:

@@ -6,10 +6,12 @@ the validator DaemonSet's init containers:
   python -m tpu_operator_torch.validator.cli --component jax --with-workload
   python -m tpu_operator_torch.validator.cli --component plugin --wait-only
   python -m tpu_operator_torch.validator.cli --cleanup-all
+  python -m tpu_operator_torch.validator.cli --component metrics --metrics-port 8000
 
 Exit 0 on success, 1 when the component fails (and a Warning Event is
-posted on the node), 2 on a usage error.  ``--component metrics`` is not
-ported: the reference's metrics mode reads the same status files.
+posted on the node), 2 on a usage error.  ``--component metrics`` serves
+the status files and the card count as Prometheus gauges
+(``validator/metrics.py``; ``--oneshot`` prints one scrape and exits).
 
 Importing this module imports no torch: the control-plane components
 (libtpu, plugin, ``--wait-only``, ``--cleanup-all``) never pay for it.
@@ -19,7 +21,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import json
 import logging
 import os
 import sys
@@ -27,52 +28,15 @@ from typing import Optional
 
 from tpu_operator_torch import consts
 from tpu_operator_torch.obs import events as obs_events
+from tpu_operator_torch.obs import logging as obs_logging
 from tpu_operator_torch.obs import trace
 from tpu_operator_torch.validator import status
 from tpu_operator_torch.validator.components import ValidationError, Validator, ValidatorConfig
 
-FORMAT_TEXT = "text"
-FORMAT_JSON = "json"
-
-
-class _JsonFormatter(logging.Formatter):
-    def format(self, record: logging.LogRecord) -> str:
-        out = {
-            "ts": round(record.created, 3),
-            "level": record.levelname,
-            "logger": record.name,
-            "message": record.getMessage(),
-        }
-        if record.exc_info:
-            out["exc_info"] = self.formatException(record.exc_info)
-        return json.dumps(out, default=str)
-
-
-class _StderrHandler(logging.StreamHandler):
-    """Writes to ``sys.stderr`` as it is at each record, not as it was at
-    set-up (a caller may swap the stream, as pytest's capture does)."""
-
-    def __init__(self):
-        logging.Handler.__init__(self)
-
-    @property
-    def stream(self):
-        return sys.stderr
-
-
-def _setup_logging(fmt: str) -> None:
-    handler = _StderrHandler()
-    handler.setFormatter(_JsonFormatter() if fmt == FORMAT_JSON else logging.Formatter(
-        "%(asctime)s %(levelname)s %(name)s %(message)s"))
-    root = logging.getLogger()
-    root.setLevel(logging.INFO)
-    root.handlers[:] = [handler]
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser("tpu-validator")
     p.add_argument("--component", "-c", default="",
-                   help="libtpu|pjrt|plugin|jax|perf|vfio-pci (or any name with --wait-only)")
+                   help="libtpu|pjrt|plugin|jax|perf|vfio-pci|metrics (or any name with --wait-only)")
     p.add_argument("--node-name", "-n", default=None)
     p.add_argument("--namespace", default=None)
     p.add_argument("--wait-only", action="store_true",
@@ -82,20 +46,18 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sleep-interval-seconds", type=float, default=consts.VALIDATOR_SLEEP_SECONDS)
     p.add_argument("--workload-retries", type=int, default=consts.VALIDATOR_WORKLOAD_RETRIES)
     p.add_argument("--resource-retries", type=int, default=consts.VALIDATOR_RESOURCE_RETRIES)
-    # the metrics mode's flags, accepted so the DaemonSet templates' command
-    # lines parse; the mode itself exits 2
     p.add_argument("--metrics-port", type=int, default=8000)
-    p.add_argument("--oneshot", action="store_true")
+    p.add_argument("--oneshot", action="store_true", help="metrics: one scrape pass then exit")
     p.add_argument(
         "--log-format",
-        choices=(FORMAT_TEXT, FORMAT_JSON),
-        default=os.environ.get(consts.LOG_FORMAT_ENV, FORMAT_TEXT),
+        choices=(obs_logging.FORMAT_TEXT, obs_logging.FORMAT_JSON),
+        default=os.environ.get(consts.LOG_FORMAT_ENV, obs_logging.FORMAT_TEXT),
     )
     return p.parse_args(argv)
 
 
 async def run(args: argparse.Namespace) -> int:
-    _setup_logging(args.log_format)
+    obs_logging.setup(args.log_format)
     log = logging.getLogger("tpu-validator")
 
     if args.cleanup_all:
@@ -105,12 +67,6 @@ async def run(args: argparse.Namespace) -> int:
 
     if not args.component:
         log.error("--component required")
-        return 2
-
-    if args.component == "metrics" and not args.wait_only:
-        log.error("--component metrics is not ported: run the reference validator's "
-                  "metrics mode (python -m tpu_operator.validator.cli --component metrics), "
-                  "which reads the same status files")
         return 2
 
     config = ValidatorConfig(
@@ -124,6 +80,18 @@ async def run(args: argparse.Namespace) -> int:
         config.namespace = args.namespace
     if args.with_workload is not None:
         config.with_workload = args.with_workload
+
+    if args.component == "metrics":
+        from tpu_operator_torch import nvml
+        from tpu_operator_torch.validator.metrics import serve_metrics
+
+        try:
+            await serve_metrics(args.metrics_port, oneshot=args.oneshot,
+                                interval=args.sleep_interval_seconds)
+        except nvml.NvmlError as e:
+            log.error("metrics: %s", e)
+            return 1
+        return 0
 
     validator = Validator(config)
     # the operator stamps TPU_TRACEPARENT into the validator's env: the

@@ -22,6 +22,13 @@ def validation_dir() -> str:
     return consts.VALIDATION_DIR
 
 
+def worker_id_path() -> str:
+    """/run/tpu/worker_id: the handoff file between feature discovery
+    (writer) and node-local daemons without apiserver access, e.g. the
+    device plugin's Allocate env (reader)."""
+    return os.path.join(os.path.dirname(validation_dir()), "worker_id")
+
+
 def status_path(component: str) -> str:
     name = consts.STATUS_FILES.get(component, f"{component}-ready")
     return os.path.join(validation_dir(), name)
