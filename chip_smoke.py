@@ -13,7 +13,8 @@ attention checks, the post-ready perf probes, training, the parallelism
 census, the multi-host program, the serving engine, the migratable
 training job, the warm pool of kernel libraries, the node's card-facing
 agents (device plugin, feature discovery, metrics agent, health), the node
-validator, the partition acceptance and the validator's multi-host branch, the way the
+validator, the partition acceptance, partitions of whole cards and the
+operand agents, and the validator's multi-host branch, the way the
 validator and the migration drain run them, and holds every kernel on those
 paths
 against its plain PyTorch version.  Phases, each fatal on failure:
@@ -125,11 +126,36 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    drop-box holding the allreduce figures, and on more than one card the
    busbw floor armed from the NVLink catalogue and cleared; prints the card
    counts of nvidia-smi -L, /dev and CUDA, and each component's wall time
-14. partition — the partition acceptance on the cards: two units of half
-   the cards each (CUDA_VISIBLE_DEVICES), each burn-in exactly equal to its
-   solo run, the trajectories independent, each unit seeing its own cards;
-   on one card one unit, solo against the barrier run
-15. slice    — the validator's multi-host branch: on 2 or more cards the
+14. partition — the partition acceptance on the cards: two units of one
+   card each (CUDA_VISIBLE_DEVICES), each burn-in exactly equal to its solo
+   run, the trajectories independent, each unit seeing its own cards; on
+   one card one unit, solo against the barrier run (two-card units run in
+   the slices phase, under the plugin's allocations)
+15. slices   — partitions of whole cards, on the card machine's NVML, the
+   slice manager and the plugin driven against the stand-in apiserver (2x2
+   with 4 cards, 1x1 with one): ``all-disabled`` gives the flat plugin over
+   every card; a profile (two 1x2 on four cards, ``all-isolated`` on one)
+   goes pending then success, evicts the pod asking for a card and keeps
+   the DaemonSet's, and a second pass does nothing; ``mixed`` serves
+   ``nvidia.com/gpu-<shape>`` with units of NVML's UUIDs, all Healthy, two
+   in one container refused; a child under each unit's allocation env
+   (all at once) sees exactly the unit's UUIDs and passes vector-add (and
+   allreduce on two cards) with max_error 0, B1 launched; on four cards
+   both units' burn-in at once under the allocations, each equal to its
+   solo run, trajectories distinct, and the reference's ``all-isolated``
+   on 2x2 failed with the layout and plugin set unchanged; a two-host 2x4
+   layout's units on this host's cards under worker id 1, the flat plugin
+   without one; then on synthetic trees under the phase's root only (the
+   cards' PCI addresses from NVML and vendor and class from the real
+   sysfs where the machine gives them, else synthesized and said so, and
+   an NVSwitch decoy): the vfio manager binds exactly the cards,
+   ``validator.cli --component vfio-pci`` passes, ``--mode vfio``
+   advertises every card and maps the groups; runtime prep, the runtime
+   container's marker (the ``libtpu`` component passes on it, the payload
+   the machine's libcuda), the VM runtime drop-in and the config manager's
+   pick; ``nvidia-smi -q``'s bus ids and MIG lines unchanged; prints the
+   phase's wall time and each child's
+16. slice    — the validator's multi-host branch: on 2 or more cards the
    validators of a two-host slice (worker 0 and 1, half the cards each by
    CUDA_VISIBLE_DEVICES) run jax, then perf, at once in one event loop
    against a dict-backed stand-in apiserver whose kubelet runs each
@@ -143,7 +169,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    drop-box, its pods at the cross-slice floor); on one card one line says
    why nothing runs (NCCL refuses two ranks on one card); prints each
    validator's wall and each pod's elapsed_s
-16. kernel   — each kernel against its plain version on the card: the add
+17. kernel   — each kernel against its plain version on the card: the add
    bit-identical (tolerance 0, as int32 or int16 views) in f32, bf16 and
    f16 at the gate's shape, a ragged shape and a view one element off
    16-byte alignment, and at sizes that end mid-vector and mid-block; the
@@ -185,7 +211,7 @@ against its plain PyTorch version.  Phases, each fatal on failure:
    pool in random order): the same tolerances, each case launched twice
    and bit-identical, and its first and last request alone the same bits
    as their rows in the batch
-17. timing   — CUDA-event medians of each kernel, its plain version and the
+18. timing   — CUDA-event medians of each kernel, its plain version and the
    library call where one exists, beside the least time the card allows
    (the larger of bytes over its memory rate and operations over its peak
    for their type, from ``tpu_operator_torch/k8s/nodeinfo.py``); the flash
@@ -1015,7 +1041,7 @@ def agents_phase(n_cards: int, root: str, name: str) -> dict:
     print(f"agents: the plugin advertises {advertised}", flush=True)
     require(len(advertised) == n_cards and all(h == "Healthy" for _, h in advertised),
             f"the plugin advertises {advertised} for {n_cards} cards")
-    by_index = sorted(plugin.devices.values(), key=lambda c: c.index)
+    by_index = sorted((card for (card,) in plugin.devices.values()), key=lambda c: c.index)
     first, last = by_index[0], by_index[-1]
     alloc = plugin.allocate([first.uuid])
     print(f"agents: Allocate([{first.uuid}]) -> {alloc}", flush=True)
@@ -1299,19 +1325,17 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
 
 def partition_phase(n_cards: int, root: str) -> dict:
     """The partition acceptance on the cards (``simulate_cpu=False``): two
-    units of half the cards each, masked by CUDA_VISIBLE_DEVICES, each
-    burn-in exactly equal to its solo run, the trajectories independent and
-    each unit seeing its own cards; on one card, one unit, solo against the
-    barrier run."""
+    units of one card each, masked by CUDA_VISIBLE_DEVICES, each burn-in
+    exactly equal to its solo run, the trajectories independent and each
+    unit seeing its own cards; on one card, one unit, solo against the
+    barrier run.  Units of two cards, each two NCCL ranks, run in the
+    slices phase under the device plugin's allocations."""
     from tpu_operator_torch.workloads import partition_acceptance as pa
 
-    half = n_cards // 2
-    units = ({"a": list(range(half)), "b": list(range(half, 2 * half))} if n_cards > 1
-             else {"a": [0]})
+    units = {"a": [0], "b": [1]} if n_cards > 1 else {"a": [0]}
     os.environ["TPU_VALIDATION_ROOT"] = root
     t0 = time.perf_counter()
-    r = pa.concurrent_acceptance(units, f"1x{max(1, half)}", steps=3, timeout=300,
-                                 simulate_cpu=False)
+    r = pa.concurrent_acceptance(units, "1x1", steps=3, timeout=300, simulate_cpu=False)
     wall = time.perf_counter() - t0
     print(f"partition: {json.dumps(r)[:4000]} in {wall:.2f}s wall", flush=True)
     require(r["ok"] and r["independent_trajectories"], f"partition acceptance failed: {r}")
@@ -1325,12 +1349,394 @@ def partition_phase(n_cards: int, root: str) -> dict:
     return r
 
 
+# the child under one partition unit's allocation: the cards it sees, then
+# run_validation's gate and B1's launches in it
+_UNIT_CHILD = """
+import json, sys, torch
+from tpu_operator_torch.kernels import vector_add as va
+from tpu_operator_torch.workloads import run_validation
+print(json.dumps({"uuids": [str(torch.cuda.get_device_properties(i).uuid)
+                            for i in range(torch.cuda.device_count())]}))
+rc = run_validation.main()
+print(json.dumps({"vector_add_launches": va.launches}))
+sys.exit(rc)
+"""
+SLICE_PROFILES = {"version": "v1", "slice-configs": {
+    "all-disabled": [{"accelerators": ["*"], "partitions": []}],
+    # the reference's default, which tiles only a 1x1 mesh
+    "all-isolated": [{"accelerators": ["*"], "partitions": ["1x1"]}],
+    "halves": [{"accelerators": ["*"], "topology": "2x2", "partitions": ["1x2", "1x2"]}],
+    "two-host": [{"accelerators": ["*"], "topology": "2x4", "partitions": ["2x2", "2x2"]}],
+}}
+
+
+def _bus_and_mig() -> list:
+    """``nvidia-smi -q`` lines naming each card's bus id and MIG mode."""
+    out = subprocess.run(["nvidia-smi", "-q"], capture_output=True, text=True, timeout=60,
+                         check=True).stdout
+    return [line.strip() for line in out.splitlines()
+            if "bus id" in line.lower() or "mig" in line.lower()]
+
+
+def _synthetic_vfio_host(root: str, cards: list) -> tuple:
+    """A sysfs and /dev under ``root`` holding the cards (NVML's order) as
+    PCI functions bound to the NVIDIA driver, IOMMU group i each, and an
+    NVSwitch bridge as a decoy.  The addresses are NVML's where it reports
+    them; vendor and class are read from the real sysfs where it has the
+    function, nothing else is done there.  Returns (card addresses, decoy
+    address, what was synthesized)."""
+    from tpu_operator_torch import nvml
+
+    addresses = nvml.pci_addresses([c.uuid for c in cards])
+    made = set()
+    devices = os.path.join(root, "sys", "bus", "pci", "devices")
+    out = []
+    for i, c in enumerate(cards):
+        addr = addresses.get(c.uuid)
+        if addr is None:
+            addr = f"0000:{0x18 + i:02x}:00.0"
+            made.add("address")
+        ids = []
+        for name, fallback in (("vendor", "0x10de"), ("class", "0x030200")):
+            try:
+                with open(os.path.join("/sys/bus/pci/devices", addr, name)) as f:
+                    ids.append(f.read().strip())
+            except OSError:
+                ids.append(fallback)
+                made.add(name)
+        out.append((addr, *ids, str(i)))
+    decoy = "0000:05:00.0"  # an HGX host's NVSwitch: vendor 0x10de, a bridge
+    for addr, vendor, cls, group in out + [(decoy, "0x10de", "0x068000", "99")]:
+        d = os.path.join(devices, addr)
+        os.makedirs(d)
+        for name, value in (("vendor", vendor), ("class", cls)):
+            with open(os.path.join(d, name), "w") as f:
+                f.write(value + "\n")
+        os.symlink("../../../bus/pci/drivers/nvidia", os.path.join(d, "driver"))
+        os.symlink(f"../../../kernel/iommu_groups/{group}", os.path.join(d, "iommu_group"))
+    open(os.path.join(root, "sys", "bus", "pci", "drivers_probe"), "w").close()
+    os.makedirs(os.path.join(root, "dev", "vfio"))
+    open(os.path.join(root, "dev", "vfio", "vfio"), "w").close()
+    return [a for a, *_ in out], decoy, made
+
+
+def slices_phase(n_cards: int, root: str, name: str) -> dict:
+    """Partitions of whole cards on the cards, the slice manager and the
+    plugin's mixed strategy against the stand-in apiserver, with the card
+    machine's NVML: ``all-disabled`` (the flat plugin); a profile that
+    tiles the node's mesh (two 1x2 on four cards, ``all-isolated`` on one)
+    pending then success, the card pod evicted and the DaemonSet's kept,
+    idempotent; the units Healthy, two refused; a child under each unit's
+    allocation seeing exactly its UUIDs and passing its gate (B1); on four
+    cards both units' burn-in at once under the allocations, each equal to
+    its solo run, and the reference's ``all-isolated`` failed, nothing
+    changed; a two-host layout's units on this host (worker id 1), the
+    flat plugin without an id; then on synthetic trees under ``root`` only
+    the vfio manager (the cards bound, the NVSwitch decoy not), the
+    ``vfio-pci`` component, ``--mode vfio``, runtime prep, the runtime
+    container's marker (the ``libtpu`` component passes on it), the VM
+    runtime manager and the config manager.  Returns B1's launches."""
+    import asyncio
+
+    from tpu_operator_torch import consts, hw, nvml
+    from tpu_operator_torch.agents import (config_manager, feature_discovery, libtpu_installer,
+                                           runtime_prep, slice_manager, vfio_manager,
+                                           vm_runtime_manager)
+    from tpu_operator_torch.deviceplugin import sliceconfig
+    from tpu_operator_torch.deviceplugin.plugin import (AllocationRefused, GPUDevicePlugin,
+                                                       PluginConfig)
+    from tpu_operator_torch.validator import components, status
+    from tpu_operator_torch.workloads import partition_acceptance as pa
+
+    t_phase = time.perf_counter()
+    before = _bus_and_mig()
+    run_dir = os.path.join(root, "run")
+    os.makedirs(os.path.join(run_dir, "validations"))
+    os.environ["TPU_VALIDATION_ROOT"] = run_dir
+    os.environ.pop("TPU_WORKER_ID", None)
+    inv = nvml.inventory()
+    cards = sorted(inv.cards, key=lambda c: c.index)
+    libcuda = hw.libcuda_path()  # the installer's payload, from the real host
+    topology = {1: "1x1", 4: "2x2"}.get(n_cards, f"1x{n_cards}")
+    profile = "halves" if n_cards == 4 else "all-isolated" if n_cards == 1 else ""
+    if not profile:
+        print(f"slices: {n_cards} cards: the phase runs on 1 or 4", flush=True)
+        return {"vector_add": 0}
+    config_file = os.path.join(root, "config.yaml")
+    with open(config_file, "w") as f:
+        json.dump(SLICE_PROFILES, f)  # a JSON document is YAML
+    api = _StandInApi(None)
+    api.put({"apiVersion": "v1", "kind": "Node", "metadata": {"name": "h100-0", "labels": {
+        consts.GKE_TPU_ACCELERATOR_LABEL: "tpu-v5-lite-podslice",
+        consts.GKE_TPU_TOPOLOGY_LABEL: topology, consts.TPU_COUNT_LABEL: str(n_cards),
+        consts.SLICE_CONFIG_LABEL: "all-disabled"}}})
+    states = []
+    patch = api.patch
+
+    async def recording_patch(group, kind, obj_name, change, namespace=None):
+        states.append(change["metadata"]["labels"][consts.SLICE_CONFIG_STATE_LABEL])
+        return await patch(group, kind, obj_name, change, namespace)
+
+    api.patch = recording_patch
+    mgr = slice_manager.SliceManager(api, "h100-0", config_file)
+
+    def relabel(**labels):
+        api.objects[("Node", "", "h100-0")]["metadata"]["labels"].update(labels)
+
+    def plugin_set() -> list:
+        base = PluginConfig(kubelet_dir=os.path.join(root, "kubelet"))
+        return [(c.resource_name, c.device_sets)
+                for c in sliceconfig.build_plugin_configs("mixed", base)]
+
+    # 1. the whole slice
+    require(asyncio.run(mgr.sync_once()) == "success" and states == ["pending", "success"],
+            f"all-disabled: states {states}")
+    layout = slice_manager.read_applied()
+    require(layout["partitions"] == [] and plugin_set() == [(consts.GPU_RESOURCE, None)],
+            f"all-disabled: layout {layout}, plugins {plugin_set()}")
+    flat = GPUDevicePlugin(PluginConfig(kubelet_dir=os.path.join(root, "kubelet")))
+    flat.refresh_devices()
+    require(len(flat.snapshot()) == n_cards and {h for _, h in flat.snapshot()} == {"Healthy"},
+            f"the flat plugin under all-disabled: {flat.snapshot()}")
+
+    # 2. the profile, with a card pod and an operand's pod on the node
+    for pod_name, owner in (("train", None), ("operand", "DaemonSet")):
+        meta = {"name": pod_name, "namespace": "default", "uid": f"uid-{pod_name}"}
+        if owner:
+            meta["ownerReferences"] = [{"kind": owner, "name": "operand"}]
+        api.put({"apiVersion": "v1", "kind": "Pod", "metadata": meta, "spec": {
+            "nodeName": "h100-0", "containers": [{"name": "c", "resources": {
+                "limits": {consts.GPU_RESOURCE: "1"}}}]}})
+    relabel(**{consts.SLICE_CONFIG_LABEL: profile})
+    states.clear()
+    state = asyncio.run(mgr.sync_once())
+    pods = sorted(k[2] for k in api.objects if k[0] == "Pod")
+    again = asyncio.run(mgr.sync_once())
+    layout = slice_manager.read_applied()
+    print(f"slices: {profile} on {topology}: states {states}, pods left {pods}, second pass "
+          f"{again!r}, layout {layout}", flush=True)
+    require(state == "success" and states == ["pending", "success"] and again is None,
+            f"{profile}: {state}, states {states}, second pass {again}")
+    require(pods == ["operand"], f"{profile}: the pods left are {pods}")
+
+    # 3. the units
+    (config,) = sliceconfig.build_plugin_configs("mixed", PluginConfig(
+        kubelet_dir=os.path.join(root, "kubelet")))
+    shape = "1x2" if n_cards == 4 else "1x1"
+    want_sets = ({"gpu-1x2-0": [0, 1], "gpu-1x2-1": [2, 3]} if n_cards == 4
+                 else {"gpu-1x1-0": [0]})
+    require(config.resource_name == f"{consts.GPU_RESOURCE}-{shape}"
+            and config.device_sets == want_sets, f"the mixed plugin set {config}")
+    plugin = GPUDevicePlugin(config)
+    plugin.refresh_devices()
+    units = {did: [m.uuid for m in members] for did, members in plugin.devices.items()}
+    print(f"slices: {config.resource_name} advertises {plugin.snapshot()}; units {units}",
+          flush=True)
+    require({h for _, h in plugin.snapshot()} == {"Healthy"}
+            and units == {did: [cards[i].uuid for i in ix] for did, ix in want_sets.items()},
+            f"the units {units} against NVML's order {[c.uuid for c in cards]}")
+    try:
+        plugin.allocate(sorted(units) if len(units) > 1 else sorted(units) * 2)
+        require(False, "two units in one container were allocated")
+    except AllocationRefused as e:
+        print(f"slices: two units refused: {e}", flush=True)
+    allocs = {did: plugin.allocate([did]) for did in sorted(units)}
+
+    # 4. a child under each unit's allocation, all at once
+    def child(did: str) -> tuple:
+        checks = "vector-add,allreduce" if len(units[did]) > 1 else "vector-add"
+        return _allocation_child(
+            _UNIT_CHILD, allocs[did]["envs"], os.path.join(root, "unit-" + did),
+            WORKLOAD_CHECKS=checks, EXPECTED_DEVICES=str(len(units[did])),
+            DEVICE_COUNT_GATE_BACKENDS="cuda")
+
+    with concurrent.futures.ThreadPoolExecutor(len(units)) as pool:
+        runs = dict(zip(sorted(units), pool.map(child, sorted(units))))
+    b1, child_s = 0, {}
+    for did, (proc, lines, wall) in runs.items():
+        child_s[did] = wall
+        seen = next((line["uuids"] for line in lines if "uuids" in line), [])
+        by_check = {line.get("check"): line for line in lines}
+        launches = next((line["vector_add_launches"] for line in lines
+                         if "vector_add_launches" in line), 0)
+        print(f"slices: unit {did} child rc={proc.returncode} in {wall:.2f}s wall, sees "
+              f"{seen}, {[by_check.get(c) for c in ('vector-add', 'allreduce')]}, B1 "
+              f"{launches}", flush=True)
+        require(proc.returncode == 0, f"unit {did}'s child failed: {proc.stderr[-3000:]}")
+        require(sorted(map(_uuid, seen)) == sorted(units[did]),
+                f"unit {did}'s child sees {seen}, the unit is {units[did]}")
+        require(by_check.get("vector-add", {}).get("max_error") == 0.0 and launches > 0,
+                f"unit {did}'s vector-add {by_check.get('vector-add')}, B1 {launches}")
+        if len(units[did]) > 1:
+            ar = by_check.get("allreduce", {})
+            require(ar.get("ok") and ar.get("max_error") == 0.0, f"unit {did}'s allreduce {ar}")
+        b1 += launches
+
+    # 5. both units' burn-in at once under the plugin's allocations
+    result = {"vector_add": b1, "child_s": child_s}
+    if n_cards == 4:
+        t0 = time.perf_counter()
+        r = pa.concurrent_acceptance(units, shape, steps=3, timeout=300, simulate_cpu=False,
+                                     allocations={d: a["envs"] for d, a in allocs.items()})
+        result["burn_in_s"] = time.perf_counter() - t0
+        print(f"slices: burn-in of both units at once under their allocations in "
+              f"{result['burn_in_s']:.2f}s: {json.dumps(r)[:3000]}", flush=True)
+        require(r["ok"] and r["independent_trajectories"]
+                and all(u["matches_solo"] and u["devices"] == 2 for u in r["units"].values()),
+                f"the units' burn-in: {r}")
+
+        # 6. the reference's all-isolated on 2x2 fails and changes nothing
+        with open(status.slice_config_path(), "rb") as f:
+            applied = f.read()
+        sets = plugin_set()
+        relabel(**{consts.SLICE_CONFIG_LABEL: "all-isolated"})
+        states.clear()
+        state = asyncio.run(mgr.sync_once())
+        with open(status.slice_config_path(), "rb") as f:
+            unchanged = f.read() == applied
+        print(f"slices: all-isolated on 2x2: {state}, states {states}, layout unchanged "
+              f"{unchanged}", flush=True)
+        require(state == "failed" and states == ["failed"] and unchanged
+                and plugin_set() == sets, f"all-isolated on 2x2: {state}, {states}")
+
+    # 7. a layout of two hosts: this host's units under worker id 1
+    relabel(**{consts.SLICE_CONFIG_LABEL: "two-host", consts.GKE_TPU_TOPOLOGY_LABEL: "2x4"})
+    require(asyncio.run(mgr.sync_once()) == "success", "the two-host layout failed")
+    no_id = plugin_set()
+    os.environ["TPU_WORKER_ID"] = "1"
+    try:
+        worker_1 = plugin_set()
+    finally:
+        os.environ.pop("TPU_WORKER_ID")
+    mine = sliceconfig.host_units(slice_manager.read_applied(), 1, n_cards)
+    print(f"slices: two-host 2x4 layout: no worker id {no_id}; worker 1 {worker_1}",
+          flush=True)
+    require(no_id == [(consts.GPU_RESOURCE, None)], f"no worker id: {no_id}")
+    require(worker_1 == [(f"{consts.GPU_RESOURCE}-2x2", {
+        f"gpu-2x2-{k}": unit for k, unit in enumerate(mine["2x2"])})]
+        and all(0 <= i < n_cards for u in mine["2x2"] for i in u), f"worker 1: {worker_1}")
+
+    # 8. passthrough, on a synthetic tree only
+    vroot = os.path.join(root, "vfio-host")
+    addrs, decoy, made = _synthetic_vfio_host(vroot, cards)
+    if made:
+        print(f"slices: this machine gives no card's {', '.join(sorted(made))} (NVML's PCI "
+              f"query or /sys/bus/pci/devices): synthesized on the tree", flush=True)
+    os.environ["TPU_HW_ROOT"] = vroot
+    try:
+        require(hw.hw_root() == vroot, "the vfio manager would run on the real host")
+        found = vfio_manager.gpu_pci_addresses()
+        bound = [a for a in found if vfio_manager.bind_to_vfio(a)]
+        pci = os.path.join(vroot, "sys", "bus", "pci", "devices")
+        overrides = {a: open(os.path.join(pci, a, "driver_override")).read()
+                     for a in sorted(os.listdir(pci))
+                     if os.path.exists(os.path.join(pci, a, "driver_override"))}
+        require(found == bound == addrs and overrides == dict.fromkeys(addrs, "vfio-pci")
+                and os.path.basename(os.readlink(os.path.join(pci, decoy, "driver"))) == "nvidia",
+                f"the vfio manager bound {bound} of {found}, overrides {overrides}")
+        proc = subprocess.run(
+            [sys.executable, "-m", "tpu_operator_torch.validator.cli", "--component",
+             "vfio-pci"], env=_subprocess_env(os.path.join(root, "vfio-run")),
+            capture_output=True, text=True, timeout=120)
+        require(proc.returncode == 0, f"validator.cli --component vfio-pci: {proc.stderr[-2000:]}")
+        vplugin = GPUDevicePlugin(PluginConfig(mode="vfio"))
+        vplugin.refresh_devices()
+        valloc = vplugin.allocate(sorted(vplugin.devices))
+        print(f"slices: vfio: bound {bound}, decoy {decoy} left alone; --mode vfio advertises "
+              f"{vplugin.snapshot()}; allocation {valloc}", flush=True)
+        require(len(vplugin.snapshot()) == n_cards
+                and {h for _, h in vplugin.snapshot()} == {"Healthy"}
+                and [host for _, host, _ in valloc["devices"]]
+                == [hw.vfio_group_path(str(i)) for i in range(n_cards)]
+                + [hw.vfio_group_path("vfio")]
+                and valloc["envs"] == {"PCI_RESOURCE_NVIDIA_COM_GPU": ",".join(addrs)},
+                f"vfio mode: {vplugin.snapshot()}, {valloc}")
+
+        # 9. runtime prep, the marker, the VM runtime and the config manager
+        proot = os.path.join(root, "prep-host")
+        os.makedirs(os.path.join(proot, "dev", "vfio"))
+        for node in [f"nvidia{c.minor}" for c in cards] + ["nvidiactl", "vfio/0"]:
+            open(os.path.join(proot, "dev", node), "w").close()
+        os.environ["TPU_HW_ROOT"] = proot
+        require(hw.hw_root() == proot, "runtime prep would run on the real host")
+        os.environ["HUGEPAGES_GB"] = "1"
+        try:
+            prep = runtime_prep.prep()
+        finally:
+            os.environ.pop("HUGEPAGES_GB")
+        want = [os.path.join(proot, "dev", n) for n in
+                [f"nvidia{c.minor}" for c in cards] + ["nvidiactl", "vfio/0"]]
+        require(prep["devices"] == want
+                and all(os.stat(p).st_mode & 0o777 == 0o666 for p in want),
+                f"runtime prep: {prep}")
+        os.environ["LIBTPU_SRC"] = libcuda
+        try:
+            inst = libtpu_installer.install()
+        finally:
+            os.environ.pop("LIBTPU_SRC")
+        require(inst["installed"] and inst["chips"] == n_cards
+                and inst["version"] == feature_discovery.runtime_version(inv),
+                f"the installer: {inst}")
+
+        async def marker_run() -> dict:
+            task = asyncio.create_task(libtpu_installer.run())
+            await asyncio.sleep(0.2)
+            written = status.marker_exists(consts.LIBTPU_CTR_MARKER)
+            v = components.Validator(components.ValidatorConfig(
+                node_name="", sleep_interval=0.1, resource_retries=3, platform="cuda"))
+            await v.run("libtpu")
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+            return {"written": written, "libtpu": status.read_status("libtpu"),
+                    "removed": not status.marker_exists(consts.LIBTPU_CTR_MARKER)}
+
+        marker = asyncio.run(marker_run())
+        staged = vm_runtime_manager.stage([("kata-tpu", "kata-tpu")], "/etc/containerd/conf.d")
+        with open(vm_runtime_manager.config_path("/etc/containerd/conf.d", "kata-tpu")) as f:
+            dropin = f.read()
+        api.put({"apiVersion": "v1", "kind": "ConfigMap", "metadata": {
+            "name": "plugin-config", "namespace": "tpu-operator"},
+            "data": {"default": "mode: default\n", "perf": "mode: perf\n"}})
+        relabel(**{consts.DEVICE_PLUGIN_CONFIG_LABEL: "perf"})
+        target = os.path.join(proot, "config", "config.yaml")
+        picked = asyncio.run(config_manager.sync_once(api, "h100-0", "plugin-config",
+                                                      "tpu-operator", "default", target))
+        with open(target) as f:
+            picked_text = f.read()
+    finally:
+        os.environ.pop("TPU_HW_ROOT", None)
+    print(f"slices: runtime prep {prep}; installer {inst}; marker {marker}; VM runtime drop-ins "
+          f"changed {staged}; config manager picked {picked!r}", flush=True)
+    require(marker["written"] and marker["removed"] and marker["libtpu"]["chips"] == n_cards
+            and not marker["libtpu"]["host_managed"], f"the marker: {marker}")
+    require(staged == 1 and dropin == vm_runtime_manager.handler_config("kata-tpu"),
+            f"the VM runtime drop-in: {dropin!r}")
+    require(picked == "perf" and picked_text == "mode: perf\n", f"config manager: {picked}")
+
+    after = _bus_and_mig()
+    print(f"slices: nvidia-smi -q bus ids and MIG before {before}, after {after}", flush=True)
+    require(before == after, "a card's bus id or MIG mode changed during the phase")
+    result["wall_s"] = time.perf_counter() - t_phase
+    smi_power = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
+    print("slices: phase wall {:.2f}s, unit children {}{} on {}".format(
+        result["wall_s"], ", ".join(f"{d} {t:.2f}s" for d, t in child_s.items()),
+        f", burn-in {result['burn_in_s']:.2f}s" if "burn_in_s" in result else "", smi_power),
+        flush=True)
+    return result
+
+
 class _StandInApi:
     """A dict-backed stand-in for the port's ``ApiClient`` (no apiserver on
-    the card's machine): get, list_items (``k=v`` label selectors), create,
-    a merge patch and delete on Pods, Services and Nodes, with the port's
-    ``ApiError`` for not-found and already-exists.  A created Pod goes to
-    ``kubelet``; a deleted one's process is killed."""
+    the card's machine): get, list_items (``k=v`` label selectors, the
+    ``spec.nodeName`` field selector), create, a merge patch and delete on
+    Pods, Services, Nodes and ConfigMaps, with the port's ``ApiError`` for
+    not-found and already-exists.  A created Pod goes to ``kubelet``; a
+    deleted one's process is killed (``kubelet`` None: pods are data)."""
 
     def __init__(self, kubelet):
         self.objects: dict = {}  # (kind, namespace, name) -> object
@@ -1359,16 +1765,18 @@ class _StandInApi:
             raise self._missing(kind, name) from None
 
     async def list_items(self, group: str, kind: str, namespace=None,
-                         label_selector=None) -> list:
+                         label_selector=None, field_selector=None) -> list:
         import copy
 
         want = dict(kv.split("=", 1) for kv in label_selector.split(",")) if label_selector \
             else {}
+        node = field_selector.split("=", 1)[1] if field_selector else None  # spec.nodeName=
         out = []
         for (k, ns, _), obj in sorted(self.objects.items()):
             labels = obj["metadata"].get("labels") or {}
             if (k == kind and (namespace is None or ns == namespace)
-                    and all(labels.get(a) == b for a, b in want.items())):
+                    and all(labels.get(a) == b for a, b in want.items())
+                    and (node is None or (obj.get("spec") or {}).get("nodeName") == node)):
                 out.append(copy.deepcopy(obj))
         return out
 
@@ -1415,7 +1823,7 @@ class _StandInApi:
             if ignore_not_found:
                 return None
             raise self._missing(kind, name)
-        if kind == "Pod":
+        if kind == "Pod" and self.kubelet is not None:
             self.kubelet.stop(obj["metadata"]["uid"])
         return obj
 
@@ -2641,6 +3049,7 @@ def main() -> int:
         agents = agents_phase(count, os.path.join(root, "agents"), name)
         validator = validator_phase(count, os.path.join(root, "validator"), name)
         partition_phase(count, os.path.join(root, "partition"))
+        slices = slices_phase(count, os.path.join(root, "slices"), name)
         slice_phase(count, root, name)
     max_err = kernel_phase()
     flash_err = flash_kernel_phase()
@@ -2665,10 +3074,11 @@ def main() -> int:
         "route": "cuda",
         "source": "tpu_operator_torch/csrc/vector_add.cu",
         "replaces": "tpu_operator/workloads/collectives.py:96",
-        "launches": launches + warm["launches"] + validator["vector_add"] + agents["vector_add"],
+        "launches": launches + warm["launches"] + validator["vector_add"] + agents["vector_add"]
+        + slices["vector_add"],
         "launches_by_check": {"vector-add": launches, "warm-pool": warm["launches"],
                               "validator": validator["vector_add"],
-                              "agents": agents["vector_add"]},
+                              "agents": agents["vector_add"], "slices": slices["vector_add"]},
         "max_abs_err": max_err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],

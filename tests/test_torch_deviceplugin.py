@@ -312,7 +312,7 @@ def test_lost_and_vanished_cards_stay_unhealthy(host, monkeypatch):
     lost = [card(0), nvml.Card(1, uuid(1), -1, "", 0, lost=True), card(2), card(3)]
     monkeypatch.setattr(nvml, "inventory", lambda: inventory(lost))
     assert plugin.refresh_devices()
-    assert plugin.health[uuid(1)] == UNHEALTHY and plugin.devices[uuid(1)].minor == 1
+    assert plugin.health[uuid(1)] == UNHEALTHY and plugin.devices[uuid(1)] == (card(1),)
     # it drops out of NVML's list: still advertised, Unhealthy
     monkeypatch.setattr(nvml, "inventory", lambda: inventory([card(0), card(2), card(3)]))
     plugin.refresh_devices()
@@ -341,14 +341,78 @@ async def test_health_loop_marks_every_card_unhealthy_when_nvml_fails(host, monk
     assert set(plugin.health.values()) == {UNHEALTHY} and len(plugin.health) == 4
 
 
-def test_entry_point_refuses_what_goes_with_the_slice_manager(capsys):
-    assert plugin_main.main(["--mode", "vfio"]) == 2
-    assert plugin_main.main(["--slice-strategy", "mixed"]) == 2
-    with pytest.raises(sliceconfig.StrategyNotPorted, match="slice manager"):
-        sliceconfig.build_plugin_configs("mixed")
-    for strategy in ("none", "single"):
-        (config,) = sliceconfig.build_plugin_configs(strategy)
-        assert config.resource_name == "nvidia.com/gpu"
+@pytest.mark.parametrize("argv, strategy, mode", [
+    ([], "none", "accel"), (["--slice-strategy", "single"], "single", "accel"),
+    (["--slice-strategy", "mixed"], "mixed", "accel"), (["--mode", "vfio"], "none", "vfio"),
+    (["--mode", "vfio", "--slice-strategy", "mixed"], "mixed", "vfio")])
+def test_entry_point_parses_every_mode_and_strategy(argv, strategy, mode):
+    got_strategy, config = plugin_main.parse_config(argv)
+    assert (got_strategy, config.mode, config.resource_name) == (strategy, mode, "nvidia.com/gpu")
+    assert config.socket_name == ("nvidia-gpu-vfio.sock" if mode == "vfio" else "nvidia-gpu.sock")
+    assert not hasattr(sliceconfig, "StrategyNotPorted")
+    for flat in ("none", "single"):
+        (same,) = sliceconfig.build_plugin_configs(flat, config)
+        assert same is config
+
+
+async def _served(config, strategy, kubelet_dir):
+    """Registrations made by run_plugins(strategy, config) within 10 s."""
+    async with FakeKubelet(kubelet_dir) as kubelet:
+        task = asyncio.create_task(sliceconfig.run_plugins(strategy, config, poll_seconds=0.05))
+        try:
+            await asyncio.wait_for(kubelet.registered.wait(), timeout=10)
+            await asyncio.sleep(0.2)
+        finally:
+            task.cancel()
+            with pytest.raises(asyncio.CancelledError):
+                await task
+    return [r.resource_name for r in kubelet.registrations]
+
+
+async def test_entry_point_serves_mixed(host, monkeypatch):
+    """``--slice-strategy mixed`` on a layout of two 1x2 partitions serves
+    nvidia.com/gpu-1x2; on no layout, the flat resource."""
+    run_tpu = host / "run_tpu"
+    (run_tpu / "validations").mkdir(parents=True)
+    monkeypatch.setenv("TPU_VALIDATION_ROOT", str(run_tpu))
+    strategy, config = plugin_main.parse_config(["--slice-strategy", "mixed"])
+    config.kubelet_dir, config.health_interval = str(host / "kubelet"), 0.05
+    assert await _served(config, strategy, config.kubelet_dir) == ["nvidia.com/gpu"]
+    (run_tpu / "slice_config.json").write_text(json.dumps({
+        "profile": "halves", "topology": "2x2", "partitions": [
+            {"shape": "1x2", "origin": [0, 0], "chip_ids": [0, 1], "hosts": [0]},
+            {"shape": "1x2", "origin": [1, 0], "chip_ids": [2, 3], "hosts": [0]}]}))
+    assert await _served(config, strategy, config.kubelet_dir) == ["nvidia.com/gpu-1x2"]
+
+
+async def test_entry_point_serves_vfio(host, monkeypatch):
+    """``--mode vfio`` serves the cards bound to vfio-pci, from sysfs."""
+    make_vfio_host(host / "hw", 2)
+    strategy, config = plugin_main.parse_config(["--mode", "vfio"])
+    config.kubelet_dir, config.health_interval = str(host / "kubelet"), 0.05
+    assert await _served(config, strategy, config.kubelet_dir) == ["nvidia.com/gpu"]
+    plugin = GPUDevicePlugin(config)
+    plugin.refresh_devices()
+    assert plugin.snapshot() == [("0000:18:00.0", HEALTHY), ("0000:19:00.0", HEALTHY)]
+
+
+def make_vfio_host(root, cards: int, switch: bool = True) -> None:
+    """A host's sysfs with ``cards`` NVIDIA cards bound to vfio-pci, group
+    i each, and an NVSwitch bridge; /dev/vfio holds the groups."""
+    devices = root / "sys" / "bus" / "pci" / "devices"
+    (root / "dev" / "vfio").mkdir(parents=True, exist_ok=True)
+    (root / "dev" / "vfio" / "vfio").touch()
+    functions = [(f"0000:{0x18 + i:02x}:00.0", "0x030200", str(i)) for i in range(cards)]
+    if switch:
+        functions.append(("0000:05:00.0", "0x068000", "40"))
+    for addr, cls, group in functions:
+        d = devices / addr
+        d.mkdir(parents=True)
+        (d / "vendor").write_text("0x10de\n")
+        (d / "class").write_text(cls + "\n")
+        os.symlink(f"../../../bus/pci/drivers/vfio-pci", d / "driver")
+        os.symlink(f"../../../kernel/iommu_groups/{group}", d / "iommu_group")
+        (root / "dev" / "vfio" / group).touch()
 
 
 async def test_run_plugins_serves_and_registers(host):

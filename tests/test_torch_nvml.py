@@ -73,6 +73,12 @@ class FakeNvml:
                 v.value.ullVal = (10 if v.fieldId == nvml.FI_NVLINK_DATA_TX else 20) if good else 0
             return OK
 
+        def pci_info(h, out):
+            if handle_value(h) == 103:
+                return NOT_SUPPORTED
+            out._obj.busId = f"00000000:{handle_value(h) - 100 + 0x18:02X}:00.0".encode()
+            return OK
+
         def ancestor(a, b, out):
             out._obj.value = 10 if {handle_value(a), handle_value(b)} == {100, 101} else 40
             return topology_code
@@ -91,6 +97,7 @@ class FakeNvml:
         fn("nvmlDeviceGetUtilizationRates", utilization)
         fn("nvmlDeviceGetFieldValues", fields)
         fn("nvmlDeviceGetTopologyCommonAncestor", ancestor)
+        fn("nvmlDeviceGetPciInfo_v3", pci_info)
 
 
 @pytest.fixture
@@ -120,6 +127,7 @@ def test_inventory_keeps_lost_cards_apart(fake):
     lib = fake()
     inv = nvml.inventory()
     assert inv.driver_version == "570.124.06" and inv.cuda_version == "12.8"
+    assert inv.device_count == 3
     assert inv.cards == (
         nvml.Card(0, "GPU-0000-0", 4, "NVIDIA H100 80GB HBM3", 80 * GiB),
         nvml.Card(1, "GPU-0000-1", -1, "", 0, lost=True),  # lost after its UUID
@@ -167,6 +175,17 @@ def test_topology_not_supported_leaves_the_pairs_out(fake):
     fake(topology_code=LOST)
     with pytest.raises(nvml.NvmlError):
         nvml.topology(["GPU-0000-0", "GPU-0000-1"])
+
+
+def test_pci_addresses_as_sysfs_names_them(fake):
+    fake()
+    assert ctypes.sizeof(nvml._PciInfo) == 68  # nvmlPciInfo_t
+    assert nvml.pci_addresses(["GPU-0000-0", "GPU-0000-1"]) == {
+        "GPU-0000-0": "0000:18:00.0", "GPU-0000-1": "0000:19:00.0"}
+    # a card the driver gives no PCI information for is left out (the
+    # card machine's sandboxed driver answers so)
+    assert nvml.pci_addresses(["GPU-0000-0", "GPU-0000-3"]) == {"GPU-0000-0": "0000:18:00.0"}
+    assert nvml.pci_address("00000001:AB:1F.3") == "0001:ab:1f.3"
 
 
 def test_no_nvml_fails_loudly_naming_the_library(monkeypatch):

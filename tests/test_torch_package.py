@@ -64,7 +64,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "deviceplugin.api_pb2", "deviceplugin.sliceconfig", "agents.base",
                    "agents.feature_discovery", "agents.metrics_agent",
                    "agents.metrics_exporter", "agents.node_status_exporter",
-                   "validator.metrics"):
+                   "validator.metrics", "slices", "agents.slice_manager",
+                   "agents.runtime_manager", "agents.vfio_manager", "agents.config_manager",
+                   "agents.runtime_prep", "agents.libtpu_installer",
+                   "agents.vm_runtime_manager", "deviceplugin.__main__"):
         assert f"tpu_operator_torch.{module}" in names.split(",")
     assert leaked == "LEAKED []"
 

@@ -83,3 +83,14 @@ HEALTH_OK = "ok"
 HEALTH_UNHEALTHY = "unhealthy"
 FLEET_PUSH_ENV = "TPU_FLEET_PUSH_URL"   # the metrics agent forwards /push traffic here
 PUSH_MAX_BYTES = 256 * 1024             # the agent's /push body cap
+
+# ---------------------------------------------------------------------------
+# Partitions of whole cards and the operand agents (agents/slice_manager.py,
+# deviceplugin/sliceconfig.py, agents/runtime_manager.py,
+# agents/config_manager.py): the reference's labels and annotation, so the
+# unchanged operator's policy sets what the port's agents read.
+TPU_COUNT_LABEL = "tpu.google.com/tpu.count"                # cards a host holds
+SLICE_CONFIG_LABEL = "google.com/tpu.slice.config"          # the profile's name
+SLICE_CONFIG_STATE_LABEL = "google.com/tpu.slice.config.state"  # pending|success|failed
+UPGRADE_REQUESTED_ANNOTATION = "tpu.google.com/tpu-runtime-upgrade-requested"
+DEVICE_PLUGIN_CONFIG_LABEL = "tpu.google.com/device-plugin.config"

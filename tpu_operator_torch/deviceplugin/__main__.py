@@ -1,17 +1,19 @@
-"""python -m tpu_operator_torch.deviceplugin [--slice-strategy none|single]
+"""python -m tpu_operator_torch.deviceplugin [--mode accel|vfio]
+[--slice-strategy none|single|mixed]
 
 Serves ``nvidia.com/gpu`` to the kubelet and registers with it (port of
 ``python -m tpu_operator.deviceplugin``, with its flags).  ``--mode vfio``
-(cards bound for passthrough) and ``--slice-strategy mixed`` go with the
-slice manager, which this package does not have yet: both exit 2.  A node
-without NVML fails at start, naming the library.
+serves the cards bound to ``vfio-pci`` for VMs (the sandbox plugin);
+``--slice-strategy mixed`` (the ``SLICE_STRATEGY`` env) serves one
+``nvidia.com/gpu-<shape>`` resource per partition shape of the slice
+manager's layout, in either mode.  A node without NVML fails at start,
+naming the library (vfio mode reads sysfs, not NVML).
 """
 
 from __future__ import annotations
 
 import argparse
 import asyncio
-import logging
 import os
 import sys
 from typing import Optional
@@ -21,30 +23,29 @@ from tpu_operator_torch.agents import base
 from tpu_operator_torch.deviceplugin import sliceconfig
 from tpu_operator_torch.deviceplugin.plugin import PluginConfig
 
-log = logging.getLogger("tpu_operator_torch.deviceplugin")
 
-
-def main(argv: Optional[list] = None) -> int:
-    base.setup_logging()
+def parse_config(argv: Optional[list] = None) -> tuple:
+    """(slice strategy, the base plugin config) from the command line."""
     p = argparse.ArgumentParser("gpu-device-plugin")
     p.add_argument("--mode", choices=["accel", "vfio"], default="accel")
     p.add_argument("--resource-name", default=consts.GPU_RESOURCE)
-    p.add_argument("--socket-name", default="nvidia-gpu.sock")
+    p.add_argument("--socket-name", default=None)
     p.add_argument(
         "--slice-strategy",
         choices=["none", "single", "mixed"],
         default=os.environ.get("SLICE_STRATEGY", "none") or "none",
     )
     args = p.parse_args(argv)
-    if args.mode == "vfio":
-        log.error("--mode vfio goes with the slice manager and the vfio manager, which "
-                  "this package does not have yet")
-        return 2
-    if args.slice_strategy == "mixed":
-        log.error("%s", sliceconfig.NOT_PORTED)
-        return 2
-    config = PluginConfig(resource_name=args.resource_name, socket_name=args.socket_name)
-    asyncio.run(sliceconfig.run_plugins(args.slice_strategy, config))
+    socket = args.socket_name or (
+        "nvidia-gpu-vfio.sock" if args.mode == "vfio" else "nvidia-gpu.sock")
+    return args.slice_strategy, PluginConfig(resource_name=args.resource_name,
+                                             socket_name=socket, mode=args.mode)
+
+
+def main(argv: Optional[list] = None) -> int:
+    base.setup_logging()
+    strategy, config = parse_config(argv)
+    asyncio.run(sliceconfig.run_plugins(strategy, config))
     return 0
 
 

@@ -30,6 +30,22 @@ What the card changes:
   of the reference's ICI mesh distance.  NVLink does not enter it: on an
   NVSwitch host every pair of cards has the same NVLink bandwidth.
 
+Partition units (``device_sets``, the mixed strategy's, from
+``sliceconfig.py``): a device is one unit of whole cards, named
+``gpu-<shape>-<k>``, its members the cards at the unit's NVML indices.  A
+unit is Healthy only while every card in it is alive and has its node; one
+lost card makes the whole unit Unhealthy, and no unit is ever served with
+fewer cards.  A container takes at most one unit.  Its allocation names
+the unit's UUIDs in NVML's order and carries no worker id.
+
+``mode="vfio"`` (the sandbox plugin, for VMs): a card bound to
+``vfio-pci`` is invisible to NVML, so the inventory is sysfs's
+(``hw.vfio_cards``), a device's id its PCI address and its node
+``/dev/vfio/<IOMMU group>``.  An allocation maps the group nodes and
+``/dev/vfio/vfio`` and names the addresses in KubeVirt's
+``PCI_RESOURCE_<resource>`` env, which a VM launcher reads, where the
+reference puts chip indices in ``TPU_VISIBLE_CHIPS``.
+
 Discovery, health, the snapshot, the allocation and the pick work on plain
 data; ``grpc`` and the generated messages are imported only by the gRPC
 handlers, ``serve()`` and ``register()``.
@@ -42,8 +58,9 @@ import itertools
 import json
 import logging
 import os
+import re
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Optional, Union
 
 from tpu_operator_torch import consts, hw, nvml
 
@@ -77,6 +94,12 @@ class PluginConfig:
         default_factory=lambda: os.environ.get("CDI_DEFAULT", "").lower() in ("1", "true")
     )
     cdi_dir: str = field(default_factory=lambda: os.environ.get("CDI_DIR", "/var/run/cdi"))
+    mode: str = "accel"  # accel | vfio (the sandbox plugin)
+    # the mixed strategy's partition units: unit id -> the local indices of
+    # its cards (NVML's index in accel mode, the position among the
+    # vfio-bound cards in vfio mode); None serves every card on its own
+    device_sets: Optional[dict[str, list[int]]] = None
+    device_shape: str = ""  # the units' partition shape, e.g. "1x2"
 
     @property
     def socket_path(self) -> str:
@@ -91,14 +114,40 @@ class UnknownDevice(KeyError):
     """Allocate named a device this plugin never advertised."""
 
 
+class AllocationRefused(ValueError):
+    """Allocate asked for what a partition unit cannot give: two units in
+    one container, or a unit holding a card NVML never listed."""
+
+
+# a device's member: a card NVML lists, or a card bound for passthrough
+Member = Union[nvml.Card, hw.PciFunction]
+
+
+def member_id(member: Member) -> str:
+    return member.uuid if isinstance(member, nvml.Card) else member.address
+
+
+def member_node(member: Member) -> str:
+    """The host path of the member's own device node."""
+    if isinstance(member, nvml.Card):
+        return card_node(member.minor)
+    return hw.vfio_group_path(member.iommu_group)
+
+
+def pci_resource_env(resource_name: str) -> str:
+    """KubeVirt's env naming a resource's PCI addresses
+    (``nvidia.com/gpu`` -> ``PCI_RESOURCE_NVIDIA_COM_GPU``)."""
+    return "PCI_RESOURCE_" + re.sub(r"[/.]", "_", resource_name.upper())
+
+
 def card_node(minor: int) -> str:
     """The host path of the card with this minor number."""
-    return os.path.join(hw.hw_root(), "dev", f"nvidia{minor}")
+    return os.path.join(hw.dev_dir(), f"nvidia{minor}")
 
 
 def control_nodes() -> list[str]:
     """The driver's control nodes that exist on the host."""
-    paths = [os.path.join(hw.hw_root(), "dev", name) for name in CONTROL_NODES]
+    paths = [os.path.join(hw.dev_dir(), name) for name in CONTROL_NODES]
     return [p for p in paths if os.path.exists(p)]
 
 
@@ -127,7 +176,9 @@ class GPUDevicePlugin:
 
     def __init__(self, config: Optional[PluginConfig] = None):
         self.config = config or PluginConfig()
-        self.devices: dict[str, nvml.Card] = {}  # UUID -> card
+        # device id (a UUID, a PCI address or a unit id) -> its members;
+        # None stands for a unit's card NVML has never listed
+        self.devices: dict[str, tuple] = {}
         self.health: dict[str, str] = {}
         # one queue per live ListAndWatch stream (broadcast, not steal)
         self._watchers: set[asyncio.Queue] = set()
@@ -135,27 +186,69 @@ class GPUDevicePlugin:
         self._health_task: Optional[asyncio.Task] = None
 
     # -- discovery / health -------------------------------------------
+    def _inventory(self) -> list:
+        """The cards this mode serves: NVML's, or the vfio-bound ones."""
+        if self.config.mode == "vfio":
+            return hw.vfio_cards()
+        return list(nvml.inventory().cards)
+
+    def _alive(self, member: Optional[Member], now: dict) -> bool:
+        """The member is in the inventory ``now`` ({id: member}), not lost,
+        and its node exists."""
+        current = now.get(member_id(member)) if member is not None else None
+        if current is None or getattr(current, "lost", False):
+            return False
+        if isinstance(current, hw.PciFunction) and not current.iommu_group:
+            return False
+        return os.path.exists(member_node(current))
+
     def refresh_devices(self) -> bool:
         """Re-read the inventory.  A card is Healthy while NVML lists it as
-        alive and its node exists.  A card seen before that NVML no longer
-        lists, or answers "GPU is lost" for, or whose node vanished, stays
-        advertised as Unhealthy (the kubelet's signal to fail pods bound to
-        it) rather than silently dropping capacity."""
-        devices, health = {}, {}
-        for card in nvml.inventory().cards:
-            alive = not card.lost and os.path.exists(card_node(card.minor))
-            seen = self.devices.get(card.uuid)
-            if card.lost and seen is not None:
-                card = seen  # a lost card no longer reports its minor number
-            devices[card.uuid] = card
-            health[card.uuid] = HEALTHY if alive else UNHEALTHY
-        for did, card in self.devices.items():
-            if did not in devices:
-                devices[did] = card
-                health[did] = UNHEALTHY
+        alive and its node exists (in vfio mode: while it is bound to
+        ``vfio-pci`` and its group node exists).  A device seen before
+        that the inventory no longer lists, or that NVML answers "GPU is
+        lost" for, or whose node vanished, stays advertised as Unhealthy
+        (the kubelet's signal to fail pods bound to it) rather than
+        silently dropping capacity."""
+        current = self._inventory()
+        now = {member_id(m): m for m in current}
+        if self.config.device_sets is not None:
+            devices = self._units(current)
+        else:
+            devices = {}
+            for did, member in now.items():
+                seen = self.devices.get(did)
+                if getattr(member, "lost", False) and seen:
+                    member = seen[0]  # a lost card no longer reports its minor number
+                devices[did] = (member,)
+            for did, members in self.devices.items():
+                devices.setdefault(did, members)
+        health = {did: HEALTHY if all(self._alive(m, now) for m in members) else UNHEALTHY
+                  for did, members in devices.items()}
         changed = devices != self.devices or health != self.health
         self.devices, self.health = devices, health
         return changed
+
+    def _units(self, current: list) -> dict[str, tuple]:
+        """Each unit's members, resolved from its local indices the first
+        time each card is seen and kept after (a lost or vanished card
+        stays in its unit, which turns Unhealthy)."""
+        if self.config.mode == "vfio":
+            local = dict(enumerate(current))
+        else:
+            local = {card.index: card for card in current}
+        units = {}
+        for unit, indices in self.config.device_sets.items():
+            seen = self.devices.get(unit) or (None,) * len(indices)
+            members = []
+            for index, old in zip(indices, seen):
+                member = local.get(index)
+                if old is not None and (member is None or member_id(member) != member_id(old)
+                                        or getattr(member, "lost", False)):
+                    member = old
+                members.append(member)
+            units[unit] = tuple(members)
+        return units
 
     def _mark_all_unhealthy(self) -> bool:
         health = dict.fromkeys(self.devices, UNHEALTHY)
@@ -168,13 +261,21 @@ class GPUDevicePlugin:
             self.config.cdi_dir, self.config.resource_name.replace("/", "-") + ".json"
         )
 
+    def _shared_nodes(self) -> list[str]:
+        """The nodes every allocation maps beside its devices' own: the
+        driver's control nodes, or the VFIO container node."""
+        if self.config.mode != "vfio":
+            return control_nodes()
+        container = hw.vfio_group_path("vfio")
+        return [container] if os.path.exists(container) else []
+
     def write_cdi_spec(self) -> Optional[str]:
-        """Converge the host CDI spec file describing every advertised card
-        (named by its UUID, its node in its edits) and the driver's control
-        nodes (in the spec-wide edits).  Returns the path, or None when CDI
-        is disabled (a leftover spec from an earlier enablement is removed:
-        an orphaned file would keep resolving requests against stale
-        state).  Called every health tick, since nodes appear and vanish
+        """Converge the host CDI spec file describing every advertised
+        device (named by its id, its members' nodes in its edits) and the
+        nodes every allocation shares (in the spec-wide edits).  Returns the
+        path, or None when CDI is disabled (a leftover spec from an earlier
+        enablement is removed: an orphaned file would keep resolving
+        requests against stale state).  Called every health tick, since nodes appear and vanish
         apart from the inventory; unchanged content is not rewritten."""
         path = self._cdi_spec_path()
         if not self.config.cdi_enabled:
@@ -185,17 +286,17 @@ class GPUDevicePlugin:
             return None
 
         def node(host_path: str) -> dict:
-            return {"path": f"/dev/{os.path.basename(host_path)}", "hostPath": host_path,
-                    "permissions": "rw"}
+            return {"path": f"/dev/{os.path.relpath(host_path, hw.dev_dir())}",
+                    "hostPath": host_path, "permissions": "rw"}
 
         devices = []
         for did in sorted(self.devices):
-            host_path = card_node(self.devices[did].minor)
-            nodes = [node(host_path)] if os.path.exists(host_path) else []
-            devices.append({"name": did, "containerEdits": {"deviceNodes": nodes}})
+            paths = [member_node(m) for m in self.devices[did] if m is not None]
+            devices.append({"name": did, "containerEdits": {
+                "deviceNodes": [node(p) for p in paths if os.path.exists(p)]}})
         spec: dict = {"cdiVersion": "0.6.0", "kind": self.config.resource_name,
                       "devices": devices}
-        shared = control_nodes()
+        shared = self._shared_nodes()
         if shared:
             spec["containerEdits"] = {"deviceNodes": [node(p) for p in shared]}
         os.makedirs(self.config.cdi_dir, exist_ok=True)
@@ -245,17 +346,25 @@ class GPUDevicePlugin:
 
     # -- allocation ----------------------------------------------------
     def _order(self, did: str) -> tuple:
-        card = self.devices.get(did)
-        return (card.index if card is not None else len(self.devices), did)
+        """Device order: a unit's number, a card's NVML index, a function's
+        address; an id never advertised last."""
+        members = self.devices.get(did)
+        if not members:
+            return (1 << 30, did)
+        if self.config.device_sets is not None:
+            return (hw._trailing_number(did), did)
+        return (members[0].index if isinstance(members[0], nvml.Card) else 0, did)
 
     def preferred_allocation(
         self, available: list[str], must_include: list[str], size: int
     ) -> list[str]:
-        """``size`` cards out of ``available``, ``must_include`` first: of
-        every choice, the one whose cards are nearest each other, by the
-        summed PCIe common-ancestor level of each pair (a pair NVML gives
-        no level for counts as the farthest, across the system); among
-        equals the lowest NVML indices."""
+        """``size`` devices out of ``available``, ``must_include`` first.
+        Cards: of every choice, the one whose cards are nearest each other,
+        by the summed PCIe common-ancestor level of each pair (a pair NVML
+        gives no level for counts as the farthest, across the system);
+        among equals the lowest NVML indices.  Partition units and
+        passthrough cards (NVML sees neither's links): the reference's
+        contiguous window, the smallest span in device order."""
         chosen = list(must_include)
         pool = sorted((d for d in available if d not in chosen), key=self._order)
         need = size - len(chosen)
@@ -263,37 +372,57 @@ class GPUDevicePlugin:
             return chosen[:size]
         if need >= len(pool):
             return chosen + pool
-        levels = nvml.topology(chosen + pool)
+        if self.config.device_sets is None and self.config.mode == "accel":
+            levels = nvml.topology(chosen + pool)
 
-        def spread(combo: tuple) -> int:
-            return sum(levels.get(frozenset(pair), nvml.TOPOLOGY_SYSTEM)
-                       for pair in itertools.combinations(
-                chosen + list(combo), 2))
+            def spread(combo: tuple) -> int:
+                return sum(levels.get(frozenset(pair), nvml.TOPOLOGY_SYSTEM)
+                           for pair in itertools.combinations(chosen + list(combo), 2))
 
-        return chosen + list(min(itertools.combinations(pool, need), key=spread))
+            return chosen + list(min(itertools.combinations(pool, need), key=spread))
+        position = {did: i for i, did in enumerate(sorted(self.devices, key=self._order))}
+        pos = [position.get(did, len(position)) for did in pool]
+        start = min(range(len(pool) - need + 1), key=lambda i: pos[i + need - 1] - pos[i])
+        return chosen + pool[start:start + need]
 
     def allocate(self, device_ids: list[str]) -> dict:
         """One container's allocation: ``{"envs", "devices": [(container
         path, host path, permissions)], "cdi_devices": [names]}``.  Raises
-        :class:`UnknownDevice` for an id this plugin never advertised."""
+        :class:`UnknownDevice` for an id this plugin never advertised and
+        :class:`AllocationRefused` for more than one partition unit."""
         for did in device_ids:
             if did not in self.devices:
                 raise UnknownDevice(did)
+        units = self.config.device_sets is not None
+        if units and len(device_ids) > 1:
+            # a unit is the isolation boundary; two do not merge into a
+            # larger box
+            raise AllocationRefused(
+                f"{self.config.resource_name}: at most one partition unit per container "
+                "(request a larger slice shape instead)")
         ids = sorted(device_ids, key=self._order)
+        members = [m for did in ids for m in self.devices[did]]
+        if None in members:
+            raise AllocationRefused(f"{ids[0]} holds a card NVML never listed")
+        # NVML's order for cards, the address order for passthrough
+        members.sort(key=lambda m: (m.index, "") if isinstance(m, nvml.Card) else (0, m.address))
         use_cdi = self.config.cdi_enabled and self.config.cdi_default
         devices, cdi = [], []
         if use_cdi:
             cdi = [f"{self.config.resource_name}={did}" for did in ids]
         else:
             # a node that does not exist would fail the container's start
-            paths = [card_node(self.devices[did].minor) for did in ids]
-            devices = [(f"/dev/{os.path.basename(p)}", p, "rw")
-                       for p in [*paths, *control_nodes()] if os.path.exists(p)]
-        uuids = ",".join(ids)
-        envs = {"NVIDIA_VISIBLE_DEVICES": uuids, "CUDA_VISIBLE_DEVICES": uuids}
+            paths = [member_node(m) for m in members] + self._shared_nodes()
+            devices = [(f"/dev/{os.path.relpath(p, hw.dev_dir())}", p, "rw")
+                       for p in paths if os.path.exists(p)]
+        names = ",".join(member_id(m) for m in members)
+        if self.config.mode == "vfio":
+            envs = {pci_resource_env(self.config.resource_name): names}
+        else:
+            envs = {"NVIDIA_VISIBLE_DEVICES": names, "CUDA_VISIBLE_DEVICES": names}
         # the worker id describes multi-host slice membership, which holds
-        # only for a full-host allocation
-        if ids and len(ids) == len(self.devices):
+        # only for a full-host allocation of the flat resource
+        if not units and ids and len(ids) == len(self.devices):
             wid = self.worker_id()
             if wid is not None:
                 envs["TPU_WORKER_ID"] = str(wid)
@@ -351,6 +480,8 @@ class GPUDevicePlugin:
             except UnknownDevice as e:
                 await context.abort(grpc.StatusCode.INVALID_ARGUMENT,
                                     f"unknown device {e.args[0]}")
+            except AllocationRefused as e:
+                await context.abort(grpc.StatusCode.INVALID_ARGUMENT, str(e))
             cresp = api_pb2.ContainerAllocateResponse()
             for container_path, host_path, permissions in alloc["devices"]:
                 cresp.devices.append(api_pb2.DeviceSpec(

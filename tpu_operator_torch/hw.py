@@ -13,6 +13,7 @@ from __future__ import annotations
 import glob
 import os
 import re
+from dataclasses import dataclass
 
 
 def hw_root() -> str:
@@ -53,6 +54,80 @@ def vfio_device_paths() -> list[str]:
         if os.path.basename(p) != "vfio"  # the container device, not a group
     ]
     return sorted(paths, key=lambda p: (_trailing_number(p), p))
+
+
+NVIDIA_VENDOR = 0x10DE
+VFIO_DRIVER = "vfio-pci"
+
+
+@dataclass(frozen=True)
+class PciFunction:
+    address: str      # "0000:18:00.0", the sysfs name
+    driver: str       # the bound driver's name, "" when none
+    iommu_group: str  # the IOMMU group's number, "" when none
+
+
+def is_card_function(vendor: int, pci_class: int) -> bool:
+    """An NVIDIA card: vendor 0x10de and a display controller's class
+    (0x03xxxx: VGA 0x0300, 3D 0x0302).  An HGX host's NVSwitches are vendor
+    0x10de too, as bridges (0x0680xx): they are no card, and neither the
+    device plugin nor the vfio manager may count or bind them."""
+    return vendor == NVIDIA_VENDOR and pci_class >> 16 == 0x03
+
+
+def pci_devices_dir() -> str:
+    return os.path.join(hw_root(), "sys", "bus", "pci", "devices")
+
+
+def _sysfs_number(path: str) -> int:
+    with open(path) as f:
+        return int(f.read().strip(), 16)
+
+
+def _link_name(path: str) -> str:
+    try:
+        return os.path.basename(os.readlink(path))
+    except OSError:
+        return ""
+
+
+def card_functions() -> list[PciFunction]:
+    """The host's NVIDIA cards as PCI functions (sysfs under the hardware
+    root), in address order, whatever driver holds them.  NVML orders its
+    cards by PCI bus too, so the i-th function is NVML's card i while the
+    driver holds them all."""
+    devices = pci_devices_dir()
+    try:
+        addresses = sorted(os.listdir(devices))
+    except OSError:
+        return []
+    out = []
+    for addr in addresses:
+        path = os.path.join(devices, addr)
+        try:
+            vendor = _sysfs_number(os.path.join(path, "vendor"))
+            pci_class = _sysfs_number(os.path.join(path, "class"))
+        except (OSError, ValueError):
+            continue
+        if is_card_function(vendor, pci_class):
+            out.append(PciFunction(addr, _link_name(os.path.join(path, "driver")),
+                                   _link_name(os.path.join(path, "iommu_group"))))
+    return out
+
+
+def vfio_cards() -> list[PciFunction]:
+    """The cards bound to ``vfio-pci`` for passthrough, in address order: a
+    VM host's inventory, since NVML cannot see a card the NVIDIA driver
+    does not hold."""
+    return [f for f in card_functions() if f.driver == VFIO_DRIVER]
+
+
+def dev_dir() -> str:
+    return os.path.join(hw_root(), "dev")
+
+
+def vfio_group_path(group: str) -> str:
+    return os.path.join(dev_dir(), "vfio", group)
 
 
 def chip_count() -> int:

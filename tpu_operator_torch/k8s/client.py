@@ -1,7 +1,7 @@
 """Async Kubernetes REST client: own copy of the part of
-``tpu_operator/k8s/client.py`` the node validator uses (get, create,
-delete, a merge patch, list with a label selector; in-cluster config from
-the service account), plus
+``tpu_operator/k8s/client.py`` the node validator and agents use (get,
+create, delete, a merge patch, list with a label or field selector;
+in-cluster config from the service account), plus
 ``set_owner_reference`` from ``tpu_operator/k8s/objects.py``.
 
 ``aiohttp`` is imported when the first session opens, so a validator
@@ -26,6 +26,7 @@ _RESOURCES = {
     ("", "Pod"): ("v1", "pods", True),
     ("", "Service"): ("v1", "services", True),
     ("", "Event"): ("v1", "events", True),
+    ("", "ConfigMap"): ("v1", "configmaps", True),
     ("apps", "DaemonSet"): ("v1", "daemonsets", True),
 }
 
@@ -200,10 +201,12 @@ class ApiClient:
         return await self._request("GET", resource_path(group, kind, namespace, name))
 
     async def list_items(self, group: str, kind: str, namespace: Optional[str] = None,
-                         label_selector: Optional[str] = None) -> list[dict]:
-        params = {"labelSelector": label_selector} if label_selector else None
+                         label_selector: Optional[str] = None,
+                         field_selector: Optional[str] = None) -> list[dict]:
+        params = {key: value for key, value in (("labelSelector", label_selector),
+                                                ("fieldSelector", field_selector)) if value}
         listing = await self._request("GET", resource_path(group, kind, namespace),
-                                      params=params)
+                                      params=params or None)
         return (listing or {}).get("items", [])
 
     async def create(self, obj: dict) -> dict:

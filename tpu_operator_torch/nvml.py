@@ -12,7 +12,8 @@ initialised once per process.  Three calls serve the node agents:
 - :func:`sample`: one card's counters now (utilization, memory in use,
   NVLink data bytes);
 - :func:`topology`: the PCIe common ancestor of each pair of cards, where
-  the driver reports it.
+  the driver reports it;
+- :func:`pci_addresses`: each card's PCI address as sysfs names it.
 
 A card's identity is its UUID.  NVML's index, CUDA's index and the number
 of its ``/dev`` node need not agree: CUDA orders the cards fastest first,
@@ -75,6 +76,7 @@ class Inventory:
     cards: tuple
     driver_version: str  # e.g. "570.124.06"
     cuda_version: str    # the driver's CUDA version, e.g. "12.8"
+    device_count: int = 0  # NVML's count, the cards lost before their UUID included
 
 
 class _Memory(ctypes.Structure):
@@ -90,6 +92,13 @@ class _Value(ctypes.Union):
     _fields_ = [("dVal", ctypes.c_double), ("uiVal", ctypes.c_uint),
                 ("ulVal", ctypes.c_ulong), ("ullVal", ctypes.c_ulonglong),
                 ("sllVal", ctypes.c_longlong)]
+
+
+class _PciInfo(ctypes.Structure):
+    _fields_ = [("busIdLegacy", ctypes.c_char * 16), ("domain", ctypes.c_uint),
+                ("bus", ctypes.c_uint), ("device", ctypes.c_uint),
+                ("pciDeviceId", ctypes.c_uint), ("pciSubSystemId", ctypes.c_uint),
+                ("busId", ctypes.c_char * 32)]
 
 
 class _FieldValue(ctypes.Structure):
@@ -114,6 +123,7 @@ _SIGNATURES = {
     "nvmlDeviceGetUtilizationRates": [_HANDLE, ctypes.POINTER(_Utilization)],
     "nvmlDeviceGetFieldValues": [_HANDLE, ctypes.c_int, ctypes.POINTER(_FieldValue)],
     "nvmlDeviceGetTopologyCommonAncestor": [_HANDLE, _HANDLE, ctypes.POINTER(ctypes.c_int)],
+    "nvmlDeviceGetPciInfo_v3": [_HANDLE, ctypes.POINTER(_PciInfo)],
 }
 
 
@@ -192,7 +202,7 @@ def inventory() -> Inventory:
     cuda = ctypes.c_int()
     _call(lib, "nvmlSystemGetCudaDriverVersion_v2", ctypes.byref(cuda))
     return Inventory(tuple(cards), _text(lib, "nvmlSystemGetDriverVersion"),
-                     cuda_version_text(cuda.value))
+                     cuda_version_text(cuda.value), count.value)
 
 
 def _supported(fn) -> bool:
@@ -271,4 +281,24 @@ def topology(uuids: list) -> dict:
         if _supported(lambda: _call(lib, "nvmlDeviceGetTopologyCommonAncestor", handles[a],
                                     handles[b], ctypes.byref(level))):
             out[frozenset((a, b))] = level.value
+    return out
+
+
+def pci_address(bus_id: str) -> str:
+    """NVML's bus id ("00000000:18:00.0", eight hex digits of domain) as
+    sysfs names the function ("0000:18:00.0")."""
+    domain, bus, devfn = bus_id.strip().lower().split(":")
+    return f"{int(domain, 16):04x}:{bus}:{devfn}"
+
+
+def pci_addresses(uuids: list) -> dict:
+    """{uuid: PCI address} of the cards ``uuids`` whose PCI information
+    NVML reports (a sandboxed driver answers "not supported")."""
+    lib = _library()
+    out = {}
+    for uuid in uuids:
+        info = _PciInfo()
+        if _supported(lambda: _call(lib, "nvmlDeviceGetPciInfo_v3", _handle(lib, uuid),
+                                    ctypes.byref(info))):
+            out[uuid] = pci_address(info.busId.decode())
     return out

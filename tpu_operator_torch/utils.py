@@ -1,5 +1,8 @@
-"""Own copy of the topology helpers in ``tpu_operator/utils.py`` and of
-``hashed_name`` from ``tpu_operator/state/nodepool.py``."""
+"""Own copy of the topology helpers and ``deep_get`` in
+``tpu_operator/utils.py`` and of ``hashed_name`` from
+``tpu_operator/state/nodepool.py``."""
+
+from typing import Any
 
 FNV1A_64_OFFSET = 0xCBF29CE484222325
 FNV1A_64_PRIME = 0x100000001B3
@@ -40,3 +43,16 @@ def topology_chips(topology: str) -> int:
     for d in parse_topology(topology):
         n *= d
     return n
+
+
+def deep_get(obj: Any, *path, default: Any = None) -> Any:
+    """Traverse nested dicts and lists; ``default`` on any miss or None."""
+    cur = obj
+    for key in path:
+        try:
+            cur = cur[key] if isinstance(key, int) else cur.get(key)
+        except (TypeError, AttributeError, IndexError, KeyError):
+            return default
+        if cur is None:
+            return default
+    return cur

@@ -29,6 +29,12 @@ def worker_id_path() -> str:
     return os.path.join(os.path.dirname(validation_dir()), "worker_id")
 
 
+def slice_config_path() -> str:
+    """/run/tpu/slice_config.json: the applied partition layout, written by
+    the slice manager and read by the device plugin's mixed strategy."""
+    return os.path.join(os.path.dirname(validation_dir()), "slice_config.json")
+
+
 def status_path(component: str) -> str:
     name = consts.STATUS_FILES.get(component, f"{component}-ready")
     return os.path.join(validation_dir(), name)

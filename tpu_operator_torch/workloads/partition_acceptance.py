@@ -14,7 +14,10 @@ leaky isolation boundary.
 
 On the card (``simulate_cpu=False``) a unit's mask is
 ``CUDA_VISIBLE_DEVICES``, the counterpart of the reference's
-``TPU_VISIBLE_CHIPS``.  On the CPU (``simulate_cpu=True``, the default) a
+``TPU_VISIBLE_CHIPS``: CUDA's indices of its cards, or, given the device
+plugin's allocation env for the unit (``allocations``), that env as the
+kubelet would start the container with it (the plugin names a unit's cards
+by UUID, in NVML's order, which is not CUDA's).  On the CPU (``simulate_cpu=True``, the default) a
 unit runs ``TORCH_DEVICE=cpu`` with ``DIST_CPU_RANKS`` = its size gloo
 ranks, the counterpart of the reference's virtual CPU devices.
 """
@@ -40,9 +43,11 @@ def unit_env(
     barrier_dir: Optional[str] = None,
     barrier_count: int = 0,
     simulate_cpu: bool = True,
+    allocation: Optional[dict] = None,
 ) -> dict:
     """The env a workload process needs to run masked to one partition unit:
-    the device plugin's Allocate mask, the burn-in seed and the optional
+    the device plugin's Allocate mask (``allocation``'s env when given, else
+    CUDA's indices ``chip_indices``), the burn-in seed and the optional
     start barrier.  ``shape`` is the reference's argument, kept for its
     callers: the port has no ``TPU_CHIPS_PER_HOST_BOUNDS``, since CUDA
     numbers the visible cards 0..n-1 whatever their shape."""
@@ -66,6 +71,7 @@ def unit_env(
         env["DIST_CPU_RANKS"] = str(len(chip_indices))
     else:
         env["CUDA_VISIBLE_DEVICES"] = ",".join(str(i) for i in sorted(chip_indices))
+        env.update(allocation or {})
         env["DEVICE_COUNT_GATE_BACKENDS"] = "cuda"
         # a unit on the card never runs on the CPU
         env.pop("TORCH_DEVICE", None)
@@ -124,13 +130,17 @@ def concurrent_acceptance(
     steps: int = 3,
     timeout: float = 240,
     simulate_cpu: bool = True,
+    allocations: Optional[dict[str, dict]] = None,
 ) -> dict:
     """Run every partition unit's burn-in at once (start-barrier
     synchronized) and compare each trajectory exactly against that unit's
     solo run.
 
-    ``units``: unit name → local card indices (disjoint — raises if not).
-    Returns ``ok`` plus per-unit evidence."""
+    ``units``: unit name → local card indices or UUIDs (disjoint — raises
+    if not); ``allocations``: unit name → the plugin's allocation env, which
+    then masks the unit on the card.  Returns ``ok`` plus per-unit
+    evidence."""
+    allocations = allocations or {}
     names = sorted(units)
     flat: list[int] = [c for name in names for c in units[name]]
     if len(set(flat)) != len(flat):
@@ -139,7 +149,8 @@ def concurrent_acceptance(
     # solo runs first: each unit alone, nothing else running
     solo: dict[str, list[float]] = {}
     for i, name in enumerate(names):
-        env = unit_env(units[name], shape, seed=i + 1, simulate_cpu=simulate_cpu)
+        env = unit_env(units[name], shape, seed=i + 1, simulate_cpu=simulate_cpu,
+                       allocation=allocations.get(name))
         env["BURN_IN_STEPS"] = str(steps)
         r = _run_unit(env, timeout)
         if r["returncode"] != 0 or not (r["burn_in"] or {}).get("ok"):
@@ -157,7 +168,7 @@ def concurrent_acceptance(
                 env = unit_env(
                     units[name], shape, seed=i + 1,
                     barrier_dir=bd, barrier_count=len(names),
-                    simulate_cpu=simulate_cpu,
+                    simulate_cpu=simulate_cpu, allocation=allocations.get(name),
                 )
                 env["BURN_IN_STEPS"] = str(steps)
                 procs[name] = subprocess.Popen(
