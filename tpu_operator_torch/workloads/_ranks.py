@@ -14,6 +14,13 @@ NCCL on the cards, gloo on the CPU (where the tests run four ranks).
   fails the check instead of hanging the pod.
 - Rank 0's return value is the result; its flight samples come back with it
   and are replayed into the caller's recorder.
+- Under a caller's tracer, ``run`` opens ``ranks.run`` and hands its context
+  to the ranks, which trace only then: ``ranks.rank_start`` from the
+  parent's ``start()`` of the rank to its first line (interpreter, imports,
+  unpickling; the parent passes its stamp), ``ranks.rendezvous`` around
+  ``set_device`` and ``init_process_group``, then whatever ``fn`` opens.
+  Every rank's finished spans come back and are replayed into the caller's
+  tracer.
 
 ``rotate`` is the ring hop every ring uses (ring-attention's K/V rotation,
 the remat backward's K/V and dK/dV, the ring probe's payload): every rank
@@ -25,6 +32,7 @@ return, differentiable.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import json
 import multiprocessing
@@ -38,7 +46,7 @@ from multiprocessing.connection import wait
 
 import torch
 
-from tpu_operator_torch.obs import flight
+from tpu_operator_torch.obs import flight, trace
 
 
 def rotate(*blocks, group=None):
@@ -97,38 +105,48 @@ def all_to_all(x: torch.Tensor) -> torch.Tensor:
 
 
 def _rank_main(fn, rank: int, world_size: int, device_type: str,
-               workdir: str, timeout_s: float) -> None:
+               workdir: str, timeout_s: float, spawned: float, traceparent: str) -> None:
+    begun = time.monotonic()
     import torch.distributed as dist
 
     out = os.path.join(workdir, f"rank{rank}.json")
+    ctx = trace.TraceContext.parse(traceparent)
+    tracer = trace.Tracer() if ctx is not None else None
     try:
-        # written by the parent that spawned this rank, just before
-        with open(os.path.join(workdir, "kwargs.pkl"), "rb") as f:
-            kwargs = pickle.load(f)
-        if device_type == "cuda":
-            torch.cuda.set_device(rank)
-            device = torch.device("cuda", rank)
-            backend = "nccl"
-        else:
-            # CPU ranks share the host's cores: one thread each
-            torch.set_num_threads(1)
-            device = torch.device("cpu")
-            backend = "gloo"
-        dist.init_process_group(
-            backend,
-            init_method="file://" + os.path.join(workdir, "store"),
-            world_size=world_size,
-            rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s),
-        )
-        try:
-            recorder = flight.FlightRecorder()  # in memory; shipped back below
-            with flight.activate(recorder):
-                result = fn(rank, world_size, device, **kwargs)
-            payload = {"result": result if rank == 0 else None,
-                       "samples": recorder.samples if rank == 0 else []}
-        finally:
-            dist.destroy_process_group()
+        with tracer.adopt(ctx) if tracer is not None else contextlib.nullcontext():
+            if tracer is not None:
+                tracer.record("ranks.rank_start", spawned, begun, rank=rank)
+            # written by the parent that spawned this rank, just before
+            with open(os.path.join(workdir, "kwargs.pkl"), "rb") as f:
+                kwargs = pickle.load(f)
+            with trace.span("ranks.rendezvous", rank=rank):
+                if device_type == "cuda":
+                    torch.cuda.set_device(rank)
+                    device = torch.device("cuda", rank)
+                    backend = "nccl"
+                else:
+                    # CPU ranks share the host's cores: one thread each
+                    torch.set_num_threads(1)
+                    device = torch.device("cpu")
+                    backend = "gloo"
+                dist.init_process_group(
+                    backend,
+                    init_method="file://" + os.path.join(workdir, "store"),
+                    world_size=world_size,
+                    rank=rank,
+                    timeout=datetime.timedelta(seconds=timeout_s),
+                )
+            try:
+                recorder = flight.FlightRecorder()  # in memory; shipped back below
+                with flight.activate(recorder):
+                    result = fn(rank, world_size, device, **kwargs)
+                payload = {"result": result if rank == 0 else None,
+                           "samples": recorder.samples if rank == 0 else []}
+            finally:
+                dist.destroy_process_group()
+        if tracer is not None:
+            payload["spans"] = tracer.spans()
+            payload["spans_dropped"] = tracer.dropped
     except BaseException:  # noqa: BLE001 — reported to the parent, then re-raised
         payload = {"error": traceback.format_exc()[-4000:]}
         _write(out, payload)
@@ -151,6 +169,20 @@ def run(fn, world_size: int, device_type: str, timeout_s: float = 300.0, **kwarg
         raise RuntimeError(
             f"{world_size} ranks asked for but {torch.cuda.device_count()} cards visible"
         )
+    with trace.span("ranks.run") as sp:
+        traceparent = trace.current_traceparent() if sp is not None else ""
+        payloads = _spawn(fn, world_size, device_type, timeout_s, kwargs, traceparent)
+    # replayed under the caller's span, not ranks.run
+    flight.replay(payloads[0]["samples"])
+    for payload in payloads:
+        trace.replay(payload.get("spans", []), payload.get("spans_dropped", 0))
+    return payloads[0]["result"]
+
+
+def _spawn(fn, world_size: int, device_type: str, timeout_s: float, kwargs: dict,
+           traceparent: str) -> list:
+    """Start the ranks, wait for them all, and return their payloads, rank
+    by rank; raises RuntimeError when a rank fails or misses the deadline."""
     ctx = multiprocessing.get_context("spawn")
     workdir = tempfile.mkdtemp(prefix="tpu-ranks-")
     # the arguments go by file: through the spawn pipe, a payload above the
@@ -158,17 +190,18 @@ def run(fn, world_size: int, device_type: str, timeout_s: float = 300.0, **kwarg
     # modules, which serializes the ranks' start-up
     with open(os.path.join(workdir, "kwargs.pkl"), "wb") as f:
         pickle.dump(kwargs, f)
-    procs = [
-        ctx.Process(
-            target=_rank_main,
-            args=(fn, rank, world_size, device_type, workdir, timeout_s),
-            name=f"rank{rank}",
-            daemon=True,
-        )
-        for rank in range(world_size)
-    ]
+    procs = []
     try:
-        for p in procs:
+        # each rank's start is stamped here, on the host's monotonic clock
+        for rank in range(world_size):
+            p = ctx.Process(
+                target=_rank_main,
+                args=(fn, rank, world_size, device_type, workdir, timeout_s, time.monotonic(),
+                      traceparent),
+                name=f"rank{rank}",
+                daemon=True,
+            )
+            procs.append(p)
             p.start()
         deadline = time.monotonic() + timeout_s + 30.0  # + interpreter start
         pending = list(procs)
@@ -204,7 +237,6 @@ def run(fn, world_size: int, device_type: str, timeout_s: float = 300.0, **kwarg
             raise RuntimeError(
                 f"{world_size}-rank {device_type} run failed:\n" + "\n".join(errors)
             )
-        flight.replay(payloads[0]["samples"])
-        return payloads[0]["result"]
+        return payloads
     finally:
         shutil.rmtree(workdir, ignore_errors=True)

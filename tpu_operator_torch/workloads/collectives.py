@@ -45,6 +45,7 @@ import torch.distributed as dist
 from tpu_operator_torch.kernels.vector_add import vector_add_kernel
 from tpu_operator_torch.obs import flight
 from tpu_operator_torch.obs import profile as obs_profile
+from tpu_operator_torch.obs import trace
 from tpu_operator_torch.workloads import _ranks, resolve_device, ring_attention, timing
 
 
@@ -817,28 +818,32 @@ def _layer_fwd(xs, wq, wk, wv, wo, w1, w2, heads: int, mesh: Mesh, use_kernel: b
     over the mp ring, then the Megatron-SP MLP sandwich.  The casts are the
     reference's, written out (JAX promotes bf16 @ f32 on its own): the
     normalized input is bf16 and the weights f32, so every product and the
-    residual stream are f32."""
+    residual stream are f32.  Spans ``train.attn`` and ``train.mlp`` cover
+    the two blocks' forwards; the profiler links each backward op to its
+    forward."""
     b, s_loc, d = xs.shape
     hd = d // heads
-    xf = xs.to(torch.bfloat16)
-    h = _rmsnorm(xf)
-    # one bf16 -> f32 promotion per use, in the reference's order: when xs
-    # needs a gradient (a pipeline stage's input) each use's cotangent is
-    # rounded to bf16 on its own and the rounded ones are summed in bf16,
-    # as the reference's transpose does
-    q = (h.float() @ wq).reshape(b, s_loc, heads, hd)
-    k = (h.float() @ wk).reshape(b, s_loc, heads, hd)
-    v = (h.float() @ wv).reshape(b, s_loc, heads, hd)
-    attn = ring_attention.ring_attention_remat(q, k, v, True, use_kernel, mesh.mp_group)
-    attn = attn.reshape(b, s_loc, d) @ wo
-    xa = xf.float() + attn
-    g = _rmsnorm(xa)
-    if mesh.mp > 1:
-        g = _GatherSeq.apply(g, mesh)
-    y = torch.relu(g @ w1) @ w2  # [b, S, d], partial over mp
-    if mesh.mp > 1:
-        y = _ScatterSeq.apply(y, mesh)
-    return xa + y
+    with trace.span("train.attn"):
+        xf = xs.to(torch.bfloat16)
+        h = _rmsnorm(xf)
+        # one bf16 -> f32 promotion per use, in the reference's order: when xs
+        # needs a gradient (a pipeline stage's input) each use's cotangent is
+        # rounded to bf16 on its own and the rounded ones are summed in bf16,
+        # as the reference's transpose does
+        q = (h.float() @ wq).reshape(b, s_loc, heads, hd)
+        k = (h.float() @ wk).reshape(b, s_loc, heads, hd)
+        v = (h.float() @ wv).reshape(b, s_loc, heads, hd)
+        attn = ring_attention.ring_attention_remat(q, k, v, True, use_kernel, mesh.mp_group)
+        attn = attn.reshape(b, s_loc, d) @ wo
+        xa = xf.float() + attn
+    with trace.span("train.mlp"):
+        g = _rmsnorm(xa)
+        if mesh.mp > 1:
+            g = _GatherSeq.apply(g, mesh)
+        y = torch.relu(g @ w1) @ w2  # [b, S, d], partial over mp
+        if mesh.mp > 1:
+            y = _ScatterSeq.apply(y, mesh)
+        return xa + y
 
 
 def transformer_step(
@@ -858,23 +863,30 @@ def transformer_step(
     backwards carry the cross-rank terms, and the gradients are summed:
     the attention weights over every rank, the MLP slices over dp.
     ``use_kernel`` (default: on a card) runs attention on kernels B3 and
-    B4; otherwise the plain path."""
+    B4; otherwise the plain path.
+
+    Spans (under an active tracer only): ``train.step`` around it all,
+    ``train.attn`` and ``train.mlp`` in the layer, ``train.grads`` around
+    the loss, the autograd call, the sums and the update.  Host spans: on a
+    card they time the enqueue, not the work."""
     if use_kernel is None:
         use_kernel = mesh.device.type == "cuda"
-    ws = [params[name].detach().requires_grad_() for name in TRANSFORMER_WEIGHTS]
     b, s_loc, d = x.shape
-    out = _layer_fwd(x, *ws, heads, mesh, use_kernel)
-    count = b * mesh.dp * s_loc * mesh.mp * d
-    share = out.float().square().sum() / count
-    grads = torch.autograd.grad(share, ws)
-    new = {}
-    for name, w, g in zip(TRANSFORMER_WEIGHTS, ws, grads):
-        if name in ("w1", "w2"):
-            g = _sum(g, mesh.dp_group, mesh.dp)
-        else:
-            g = _sum(g, None, mesh.size)
-        new[name] = (w.detach().float() - lr * g.float()).to(w.dtype)
-    return _sum(share.detach(), None, mesh.size), new
+    with trace.span("train.step", rank=mesh.rank):
+        ws = [params[name].detach().requires_grad_() for name in TRANSFORMER_WEIGHTS]
+        out = _layer_fwd(x, *ws, heads, mesh, use_kernel)
+        with trace.span("train.grads"):
+            count = b * mesh.dp * s_loc * mesh.mp * d
+            share = out.float().square().sum() / count
+            grads = torch.autograd.grad(share, ws)
+            new = {}
+            for name, w, g in zip(TRANSFORMER_WEIGHTS, ws, grads):
+                if name in ("w1", "w2"):
+                    g = _sum(g, mesh.dp_group, mesh.dp)
+                else:
+                    g = _sum(g, None, mesh.size)
+                new[name] = (w.detach().float() - lr * g.float()).to(w.dtype)
+            return _sum(share.detach(), None, mesh.size), new
 
 
 def _gather_mp(t: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
