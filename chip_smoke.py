@@ -275,6 +275,7 @@ PREFILL = (8, 32768, 128)  # longctx's shipping shape, [BH, T, D]
 DECODE_TAIL = 8            # decode's query rows at the end of the cache
 RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
 TRAIN_HOP = (128, 2048, 128)      # train's hop per card: batch 4 x 32 heads, 2048 tokens
+LONG_HOP = (32, 32768, 128)       # the long-context stage's: batch 1 x 32 heads, 32768 tokens
 TRANSFORMER_HOP = (16, 16, 32)    # the transformer check's: batch 4 x 4 heads, 16 tokens
 STAGE_HOP = (8, 16, 16)           # a transformer-pp stage's: batch 2 x 4 heads, 16 tokens, D 16
 PP_LOSS_RTOL = 1e-3               # transformer-pp's first loss on the cards vs gloo ranks
@@ -357,8 +358,14 @@ def build_phase() -> None:
         dtype = "bf16" if "nv_bfloat16" in line else "f32"
         usage = " | ".join(x.strip() for x in lines[i + 2:i + 4])
         smem = lib.tpu_flash_train_smem_bytes(names[kernel], dp, int(dtype == "bf16"))
-        print(f"build: {kernel} {dtype} D {dp}: {usage} | {smem} bytes of shared memory",
+        # B4 f32's kernels: ptxas counts the launch's 384 threads; setmaxnreg
+        # then gives the two product warpgroups 232 and the producer 40
+        split = " (setmaxnreg: 232 a product thread, 40 a producer thread)" if (
+            dtype == "f32" and kernel != "fold_f32_kernel") else ""
+        print(f"build: {kernel} {dtype} D {dp}: {usage}{split} | {smem} bytes of shared memory",
               flush=True)
+        require(not split or "0 bytes spill stores, 0 bytes spill loads" in usage,
+                f"{kernel} f32 spills at D {dp}")
 
 
 def run_checks(checks: tuple, n_cards: int, counters, scope: str = "") -> tuple:
@@ -2492,10 +2499,16 @@ def train_kernel_phase() -> dict:
         ("ragged (2, 300 x 420, 128) causal, Tq and Tk off 64", 2, 300, 420, 128, 120, 0, True),
         ("fully masked (4, 136 x 200, 16)", 4, 136, 200, 16, 0, 200, True),
     ]
+    # the long-context stage's diagonal hop at 4 of its heads, for B4 f32
+    # alone: a dk/dv block walks 1,024 query tiles there, 16 times the train
+    # hop's, so its sums are the longest any cell asks of it
+    lt, ld = LONG_HOP[1:]
+    long_cases = [(f"long hop (4, {lt}, {ld}) causal", 4, lt, lt, ld, 0, 0, True)]
     twice = 0  # cases launched twice on the same inputs, bit-identical
     worst = {"flash_block_backward": 0.0, "flash_block_update_f32": 0.0}
-    for dtype, tol in ((torch.float32, F32_RTOL), (torch.bfloat16, KERNEL_OUT_RTOL)):
-        for label, bh_, tq, tk, dd, q_off, k_off, causal in cases:
+    for dtype, tol, extra in ((torch.float32, F32_RTOL, long_cases),
+                              (torch.bfloat16, KERNEL_OUT_RTOL, [])):
+        for label, bh_, tq, tk, dd, q_off, k_off, causal in cases + extra:
             args, acc = _hop_inputs(gen, dtype, bh_, tq, tk, dd, q_off, k_off, causal)
             mine = tuple(a.clone() for a in acc)
             fb.flash_block_backward(*args, *mine, q_off, k_off, causal)
@@ -2936,7 +2949,7 @@ def dma_timing_phase(name: str) -> dict:
     return result
 
 
-def _sdpa_backward_ms(q, k, v, do, causal=True) -> tuple:
+def _sdpa_backward_ms(q, k, v, do, causal=True, reps=5, per=3) -> tuple:
     """The backward alone of one ``scaled_dot_product_attention`` on [1, BH,
     T, D], the forward outside the timed region; returns (ms, the backward
     node that ran, which names the backend)."""
@@ -2947,7 +2960,7 @@ def _sdpa_backward_ms(q, k, v, do, causal=True) -> tuple:
     out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=causal)
     go = do[None].to(out.dtype)
     ms = time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), go, retain_graph=True),
-                 reps=5, per=3)
+                 reps=reps, per=per)
     return ms, out.grad_fn.name()
 
 
@@ -2961,7 +2974,8 @@ def _f32_bounds(flops: float, nbytes: float, mem: float, tf32: float, f32: float
 
 def train_timing_phase(name: str) -> dict:
     """B4 (f32 and bf16) and B3's f32 entry at the train hop, B4 f32 at the
-    fully visible hop as well, their plain versions and the library calls."""
+    fully visible hop and at the long-context hop as well, their plain
+    versions and the library calls."""
     import torch
     import torch.nn.functional as F
 
@@ -2997,6 +3011,40 @@ def train_timing_phase(name: str) -> dict:
         key = f"backward_{row['dtype']}" + ("_visible" if q_off else "")
         rows[key] = row
         del q, k, v, do, lse, dsum, dq, dk, dv, acc
+    # the long-context stage's hop (the benchmark's train.s32768.x1): B4 f32
+    # alone, its lse and dsum from B3's f32 kernel.  The plain version is
+    # checked at 4 of these heads (train_kernel_phase) but not timed: at Tk
+    # 32768 its q tiles are 8 rows, and each of the 4,096 adds into the whole
+    # of dk and dv, so its time would be that traffic, not its work
+    lb, lt, ld = LONG_HOP
+    q, k, v, do = (torch.randn((lb, lt, ld), generator=gen, device="cuda") for _ in range(4))
+    m = torch.full((lb, lt), fa.NEG_INF, device="cuda")
+    l = torch.zeros((lb, lt), device="cuda")
+    o = torch.zeros((lb, lt, ld), device="cuda")
+    fa.flash_block_update(q, k, v, 0, 0, m, l, o, True)
+    lse = m + torch.log(l)
+    dsum = (do * (o / l[..., None])).sum(-1)
+    del m, l, o
+    dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
+    flops = 10.0 * ld * (lb * lt * (lt + 1) // 2)
+    nbytes = 4 * lb * lt * ld * 4 + 2 * lb * lt * 4 + 6 * lb * lt * ld * 4
+    ms = time_ms(lambda: fb.flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, 0, 0, True),
+                 reps=3, per=2)
+    del dq, dk, dv
+    library_ms, backend = _sdpa_backward_ms(q, k, v, do, causal=True, reps=3, per=1)
+    rows["backward_float32_long"] = {
+        "shape": [lb, lt, ld], "dtype": "float32", "causal": True, "q_off": 0,
+        "ms": ms,
+        "plain_ms": None,
+        "library_ms": library_ms,
+        "library_backend": backend,
+        "library_note": ("backward alone of scaled_dot_product_attention(is_causal=True), f32: "
+                         "fresh dq/dk/dv, no accumulators; the plain version is not timed here "
+                         "(each of its 8-row q tiles adds into the whole of dk and dv)"),
+        **_f32_bounds(flops, nbytes, mem, tf32_peak, f32_peak),
+        "bound_one_pass_ms": _bound(flops, nbytes, (mem, tf32_peak))["bound_ms"],
+    }
+    del q, k, v, do, lse, dsum
     q, k, v = (torch.randn((bh, t, d), generator=gen, device="cuda") for _ in range(3))
     m = torch.full((bh, t), fa.NEG_INF, device="cuda")
     l = torch.zeros((bh, t), device="cuda")
@@ -3149,6 +3197,9 @@ def main() -> int:
         "library_backend": tt["backward_float32"]["library_backend"],
         "dtypes": {"float32": entry(tt["backward_float32"]),
                    "float32 fully visible hop": entry(tt["backward_float32_visible"]),
+                   "float32 long-context hop": {
+                       **entry(tt["backward_float32_long"]),
+                       "bound_one_pass_ms": tt["backward_float32_long"]["bound_one_pass_ms"]},
                    "bfloat16": {**entry(tt["backward_bfloat16"]),
                                 "library_backend": tt["backward_bfloat16"]["library_backend"]}},
     }, {

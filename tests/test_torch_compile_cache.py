@@ -351,6 +351,15 @@ def test_library_key_follows_the_source_and_flags(sources):
     assert cc.entry_symbols("alpha") == ["tpu_alpha"]
 
 
+def test_library_key_follows_the_shared_headers(sources):
+    key = cc.library_key("alpha", {}).program
+    (sources / "common.cuh").write_text("#pragma once\n")
+    added = cc.library_key("alpha", {}).program
+    assert added != key  # a new header misses
+    (sources / "common.cuh").write_text("#pragma once\n// edited\n")
+    assert cc.library_key("alpha", {}).program not in (key, added)  # so does an edited one
+
+
 def test_compile_or_fetch_cold_then_warm(sources, tmp_path):
     store = cc.ArtifactStore(str(tmp_path / "store"))
     builds, loads = [], []

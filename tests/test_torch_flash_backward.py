@@ -10,6 +10,8 @@ four-device JAX mesh.
 """
 
 import functools
+import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -116,6 +118,35 @@ def test_block_backward_wrapper_rejects_what_the_kernel_does_not_take():
         fb.flash_block_backward(q, k, v, do, lse, dsum, dq, dq.clone(), dv, 0, 0, True)
     with pytest.raises(ValueError):
         fb.flash_block_backward(q, k, v, do, lse[:, :8], dsum, dq, dk, dv, 0, 0, True)
+
+
+_SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "tpu_operator_torch", "csrc", "flash_backward.cu")
+
+
+@pytest.mark.parametrize("kernel", ["dkdv_kernel", "dq_kernel"])
+def test_b4_kernels_keep_the_names_the_benchmark_reads(kernel):
+    """The benchmark finds B4 f32 in a device trace by its two kernels'
+    demangled names (``benchmark/readings.py``): each is a ``__global__``
+    template whose first argument is the storage type, launched as
+    ``<float, DP>`` for f32, so its f32 instances read ``dkdv_kernel<float,
+    128>`` and its bf16 ones ``dkdv_kernel<__nv_bfloat16, 128>``."""
+    readings = pytest.importorskip("benchmark.readings")
+    with open(_SOURCE) as f:
+        source = f.read()
+    declared = re.search(r"template <typename T, int DP>\s*__global__ void"
+                         r"(?:\s+__launch_bounds__\((?:[^()]|\([^()]*\))*\))?\s+" + kernel
+                         + r"\(", source)
+    assert declared, f"no __global__ template {kernel}<T, DP> in {_SOURCE}"
+    assert re.search(r"\b" + kernel + r"<float, DP><<<", source), \
+        f"{kernel} is not launched as <float, DP>"
+    pattern = next(p for p in readings.B4_F32 if kernel in p)
+    for dp in (64, 128):
+        name = f"void (anonymous namespace)::{kernel}<float, {dp}>(Maps, BwdParams<float>)"
+        assert re.search(pattern, name)
+        assert not re.search(pattern, name.replace("float", "__nv_bfloat16"))
+    others = [p for p in readings.B4_F32 if kernel not in p]
+    assert others and not any(re.search(p, f"{kernel}<float, 128>") for p in others)
 
 
 def _fold_state(rng, bh, t, d):

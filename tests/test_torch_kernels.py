@@ -7,6 +7,8 @@ The wrapper contract runs everywhere; the kernel itself needs an NVIDIA card
 """
 
 import math
+import os
+import re
 
 import pytest
 
@@ -26,6 +28,33 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     return torch.device("cuda")
+
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     "tpu_operator_torch", "csrc")
+
+
+def test_hopper_helpers_are_defined_once():
+    """The TMA, mbarrier and wgmma helpers live in ``csrc/hopper.cuh``
+    alone: no kernel source defines one of them again, and each source that
+    calls one includes the header."""
+    with open(os.path.join(_CSRC, "hopper.cuh")) as f:
+        helpers = re.findall(r"^(?:__device__ __forceinline__ |inline )\w+ (\w+)\(", f.read(),
+                             re.M)
+    assert {"mbar_wait", "tma_load_3d", "desc_sw128", "wgmma_wait0", "encode_tiled"} <= set(helpers)
+    users = 0
+    for name in sorted(os.listdir(_CSRC)):
+        if not name.endswith(".cu"):
+            continue
+        with open(os.path.join(_CSRC, name)) as f:
+            source = f.read()
+        for helper in helpers:
+            assert not re.search(r"^[^\n(;]*\b" + helper + r"\([^;]*\)\s*\{", source, re.M), \
+                f"{name} defines {helper} again"
+        if any(re.search(r"\b" + helper + r"\(", source) for helper in helpers):
+            assert '#include "hopper.cuh"' in source, f"{name} calls a helper without the header"
+            users += 1
+    assert users == 3  # flash_forward_sm90.cu, flash_backward.cu, dma_pipeline.cu
 
 
 def test_cpu_tensors_take_the_plain_version():

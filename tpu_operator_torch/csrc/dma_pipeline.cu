@@ -62,40 +62,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;  // one warp; lane 0 issues every copy
 constexpr int kBarrierAlign = 128;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
                                           uint32_t bar) {
@@ -134,7 +106,7 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t count = pieces * iters;
 
   const int bar_bytes = (slots * 8 + kBarrierAlign - 1) / kBarrierAlign * kBarrierAlign;
-  const uint32_t bars = smem_addr(smem);
+  const uint32_t bars = smem_u32(smem);
   const uint32_t bufs = bars + bar_bytes;
   for (int s = 0; s < slots; ++s) mbar_init(bars + 8 * s, 1);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");

@@ -3,9 +3,10 @@ with a plain C interface, and load it with ``ctypes``.
 
 Nothing builds at import: the first call to ``library(name)`` compiles
 ``csrc/<name>.cu`` for ``sm_90a`` into ``tpu_operator_torch/_build/`` (listed
-in ``.gitignore``), under a file name keyed by a hash of the source and the
-flags, so an edited source never loads a stale library and a fresh checkout
-builds what it needs.  The library is loaded once per process.
+in ``.gitignore``), under a file name keyed by a hash of the source, the
+headers under ``csrc/`` (``*.cuh``, which a source includes) and the flags,
+so an edited source or header never loads a stale library and a fresh
+checkout builds what it needs.  The library is loaded once per process.
 """
 
 from __future__ import annotations
@@ -55,10 +56,14 @@ def nvcc() -> str:
 
 def target(name: str) -> tuple[str, str]:
     """``(digest, path)`` of ``csrc/<name>.cu``'s library, without building
-    it: the digest hashes the source and ``NVCC_FLAGS`` (the arch among
-    them), the path is where ``build`` puts the library."""
+    it: the digest hashes the source, every header under ``csrc/`` (in name
+    order) and ``NVCC_FLAGS`` (the arch among them), the path is where
+    ``build`` puts the library."""
     with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
         source = f.read()
+    for header in sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh")):
+        with open(os.path.join(CSRC_DIR, header), "rb") as f:
+            source += f.read()
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return digest, os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 

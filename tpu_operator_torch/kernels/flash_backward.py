@@ -8,10 +8,25 @@ backward of ring attention runs once per hop.  It recomputes the hop's
 probabilities from the forward's saved log-sum-exp and adds the hop's dq, dk
 and dv into the travelling f32 accumulators, in place.  q, k, v and dO are
 f32 (the transformer step's) or bf16; lse, dsum and the accumulators f32.
-On a card the products run on the tensor cores: 3xTF32 for f32 (never one
-TF32 pass), bf16 ``mma.sync`` for bf16; two kernels without atomics, so two
-launches on the same inputs give the same bits.  A wrapper takes the plain
-version for tensors on the CPU and launches the kernel for tensors on a card.
+
+On a card it is two kernels without atomics, ``dkdv_kernel`` (a block per
+64 keys in f32, 128 in bf16, walking 32-row q tiles) and ``dq_kernel`` (a
+block per 64 query rows, or 128, walking 32-key tiles), so two launches on
+the same inputs give the same bits.  f32 runs every product as 3xTF32 (hi = rna(x), lo = rna(x - hi);
+lo hi, hi lo, then hi hi; never one TF32 pass) on Hopper's warpgroup
+``wgmma``, bound by the tensor cores' TF32 rate: a producer warpgroup brings
+the tiles by TMA into a two-stage ring and splits them, two warpgroups run
+the products.  tf32 ``wgmma`` reads both operands K-major only, so the
+products over the walked rows run transposed (dV^T += dO^T P^T and the like)
+with the walked tile transposed into registers as A, rather than keeping
+transposed copies in shared memory: at D 128 a block holds 225 KB of the
+card's 227 (fixed tiles 64 KB, the ring and its lo parts 128 KB, the
+operands made from registers 32 KB), and a thread of the products up to 232
+registers (accumulators 64, the fixed tile's hi parts 64).  The tensor
+cores' f32 sums truncate, and a causal dk/dv row at T 32768 sums thousands
+of shrinking terms, so every 32 walked tiles the accumulators are added into
+dq/dk/dv and start again.  bf16 runs ``mma.sync``.  A wrapper takes the plain version for tensors on the CPU and
+launches the kernels for tensors on a card.
 """
 
 from __future__ import annotations
