@@ -262,6 +262,7 @@ ATTENTION_CHECKS = ("longctx", "decode", "ring-attention")
 ATTENTION_PATHS = ("wgmma", "split", None)  # B5's planned path in each check
 PROBE_CHECKS = ("matmul", "hbm", "hbm-dma")  # + ring on more than one card
 TRAIN_CHECKS = ("transformer", "train", "transformer-pp")
+LM_MODEL, LM_LAYERS = "k-exaone-236b-a23b-ep16", 5  # the train check's model by name
 CENSUS_BOUNDS = {"ulysses": 2e-2, "moe": 1e-4, "pipeline": 1e-3}  # each module's own
 MULTIHOST_BUDGET_S = 90    # a survivor of a dead host must fail by itself within it
 SERVING_SHAPE = (2, 8, 128, 16)  # B5 f32 timing: heads, the 8-row tail, 128 keys, head dim
@@ -276,6 +277,8 @@ DECODE_TAIL = 8            # decode's query rows at the end of the cache
 RING_HOP = (4, 512, 128)   # one ring hop per card: 4 heads, 512 tokens
 TRAIN_HOP = (128, 2048, 128)      # train's hop per card: batch 4 x 32 heads, 2048 tokens
 LONG_HOP = (32, 32768, 128)       # the long-context stage's: batch 1 x 32 heads, 32768 tokens
+WINDOW_HOP = (256, 4096, 128)     # k-exaone's sliding layers: batch 4 x 64 heads, 4096 tokens
+WINDOW = 128                      # their window
 TRANSFORMER_HOP = (16, 16, 32)    # the transformer check's: batch 4 x 4 heads, 16 tokens
 STAGE_HOP = (8, 16, 16)           # a transformer-pp stage's: batch 2 x 4 heads, 16 tokens, D 16
 PP_LOSS_RTOL = 1e-3               # transformer-pp's first loss on the cards vs gloo ranks
@@ -348,7 +351,8 @@ def build_phase() -> None:
     # the training kernels' registers and spills, and the shared memory a
     # block takes (dynamic, so not in ptxas's lines)
     lib, _ = _build.library("flash_backward")
-    names = {"dkdv_kernel": 0, "dq_kernel": 1, "fold_f32_kernel": 2}
+    names = {"dkdv_kernel": 0, "dq_kernel": 1, "fold_f32_kernel": 2, "dkdv_band_kernel": 0,
+             "dq_band_kernel": 1, "fold_band_kernel": 2}
     lines = built["flash_backward"].log.splitlines()
     for i, line in enumerate(lines):
         kernel = next((k for k in names if k in line), None)
@@ -361,7 +365,7 @@ def build_phase() -> None:
         # B4 f32's kernels: ptxas counts the launch's 384 threads; setmaxnreg
         # then gives the two product warpgroups 232 and the producer 40
         split = " (setmaxnreg: 232 a product thread, 40 a producer thread)" if (
-            dtype == "f32" and kernel != "fold_f32_kernel") else ""
+            dtype == "f32" and not kernel.startswith("fold")) else ""
         print(f"build: {kernel} {dtype} D {dp}: {usage}{split} | {smem} bytes of shared memory",
               flush=True)
         require(not split or "0 bytes spill stores, 0 bytes spill loads" in usage,
@@ -550,6 +554,42 @@ def training_phase(n_cards: int) -> tuple:
           flush=True)
     check_pp(pp, n_cards)
     return forward, backward, train
+
+
+def lm_training_phase(n_cards: int) -> tuple:
+    """Run the ``train`` check on ``LM_MODEL`` (``TRAIN_MODEL`` set): the
+    language model's train step at its published widths, four of its five
+    layers on the windowed B3 f32 and B4 f32.  Returns the launches of
+    each; fails unless both launched, the same number of times in every
+    layer, and the losses are finite."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import flash_backward as fb
+    from tpu_operator_torch.workloads import train_bench
+
+    os.environ[train_bench.MODEL_ENV] = LM_MODEL
+    try:
+        fa.block_update_f32_launches = 0
+        fb.backward_launches = 0
+        by, (forward, backward) = run_checks(
+            ("train",), n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches))
+    finally:
+        del os.environ[train_bench.MODEL_ENV]
+    train = by["train"]
+    if n_cards > 1:
+        forward += train["launches"]["flash_block_update_f32"]
+        backward += train["launches"]["flash_block_backward"]
+    require(train["model"] == LM_MODEL and train["attention_kernel"] == "cuda-flash-fwd-bwd",
+            f"train ran {train['model']} with attention on {train['attention_kernel']}")
+    require(forward > 0 and forward % LM_LAYERS == 0 and backward > 0
+            and backward % LM_LAYERS == 0,
+            f"{LM_MODEL} launched B3 f32 {forward} and B4 f32 {backward} times, not the same "
+            f"number in each of its {LM_LAYERS} layers")
+    require(train["ok"] and math.isfinite(train["loss"]) and math.isfinite(train["loss_last"]),
+            f"{LM_MODEL} train loss {train['loss']}, {train['loss_last']}")
+    print(f"train {LM_MODEL}: step times (ms) {train['step_times_ms']}, "
+          f"{train['tokens_per_sec']!r} tokens/s, B3 f32 launched {forward}, B4 f32 {backward}",
+          flush=True)
+    return forward, backward
 
 
 def check_pp(pp: dict, n_cards: int) -> None:
@@ -2451,10 +2491,11 @@ def f32_kernel_phase() -> dict:
     return {"contiguous": worst, "paged": paged_kernel_phase()}
 
 
-def _hop_inputs(gen, dtype, bh, tq, tk, d, q_off, k_off, causal) -> tuple:
+def _hop_inputs(gen, dtype, bh, tq, tk, d, q_off, k_off, causal, window=0) -> tuple:
     """One ring hop as the remat backward sees it: q, k, v, dO in ``dtype``,
-    the forward's lse and dsum = rowsum(dO * O) (from the plain f32 fold),
-    and non-zero incoming accumulators dq, dk, dv."""
+    the forward's lse and dsum = rowsum(dO * O) (from the plain f32 fold,
+    under the sliding ``window`` when one is given), and non-zero incoming
+    accumulators dq, dk, dv."""
     import torch
 
     from tpu_operator_torch.kernels import flash_attention as fa
@@ -2467,7 +2508,7 @@ def _hop_inputs(gen, dtype, bh, tq, tk, d, q_off, k_off, causal) -> tuple:
     fresh = (torch.full((bh, tq), fa.NEG_INF, device="cuda"),
              torch.zeros((bh, tq), device="cuda"), torch.zeros((bh, tq, d), device="cuda"))
     m, l, o = fa.flash_block_update_reference(q.float(), k.float(), v.float(), q_off, k_off,
-                                              *fresh, causal)
+                                              *fresh, causal, window)
     denom = torch.where(l > 0, l, 1.0)
     dsum = (do.float() * (o / denom[..., None])).sum(-1)
     return (q, k, v, do, m + torch.log(denom), dsum), (randn(bh, tq, d), randn(bh, tk, d),
@@ -2573,6 +2614,45 @@ def train_kernel_phase() -> dict:
                 and errs["m"][1] <= STATE_RTOL,
                 f"f32 flash_block_update differs from its plain version at {label}")
         worst["flash_block_update_f32"] = max(worst["flash_block_update_f32"], errs["out"][0])
+    # f32 with a sliding window (k-exaone's sliding layers): their hop at its
+    # full shape, and a wider window on a hop whose keys start 1024 before
+    # its queries
+    wb, wt, wd = WINDOW_HOP
+    window_cases = [(f"windowed hop ({wb}, {wt}, {wd}) W {WINDOW}", wb, wt, wd, 0, WINDOW),
+                    (f"windowed (8, 2048, {wd}) W 1024, q_off 1024", 8, 2048, wd, 1024, 1024)]
+    for label, bh_, tt_, dd, q_off, window in window_cases:
+        args, acc = _hop_inputs(gen, torch.float32, bh_, tt_, tt_, dd, q_off, 0, True, window)
+        runs = []
+        for _ in range(2):
+            runs.append(tuple(a.clone() for a in acc))
+            fb.flash_block_backward(*args, *runs[-1], q_off, 0, True, window)
+        folds = []
+        for _ in range(2):
+            folds.append(fresh(bh_, tt_, dd))
+            fa.flash_block_update(*args[:3], q_off, 0, *folds[-1], True, window)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(*runs))
+                and all(torch.equal(a, b) for a, b in zip(*folds)),
+                f"the windowed f32 kernels are not deterministic at {label}")
+        twice += 2
+        ref = fb.flash_block_backward_reference(*args, *acc, q_off, 0, True, window)
+        rm, rl, ro = fa.flash_block_update_reference(*args[:3], q_off, 0, *fresh(bh_, tt_, dd),
+                                                     True, window)
+        m, l, o = folds[0]
+        # rows whose band holds no key of this block keep l = 0 on both sides
+        seen = rl > 0
+        require(torch.equal(seen, l > 0), f"the windowed fold's rows with no key differ at {label}")
+        errs = {name: _scaled_err(a - x, b - x)
+                for name, a, b, x in zip(("dq", "dk", "dv"), runs[0], ref, acc)}
+        errs["out"] = _scaled_err((o / l.clamp_min(1e-30)[..., None])[seen],
+                                  (ro / rl.clamp_min(1e-30)[..., None])[seen])
+        errs["m"] = _rel_err(m[seen], rm[seen])
+        print(f"kernel windowed f32 {label}: " + ", ".join(
+            f"{name} (/max|plain|) {e!r}" for name, e in errs.items()), flush=True)
+        require(all(v <= F32_RTOL for k, v in errs.items() if k != "m")
+                and errs["m"] <= STATE_RTOL,
+                f"the windowed f32 kernels differ from their plain versions at {label}")
+        del args, acc, runs, folds, ref
     print(f"kernel training: two launches bit-identical in all {twice} cases", flush=True)
     return worst
 
@@ -3067,6 +3147,28 @@ def train_timing_phase(name: str) -> dict:
                       3 * bh * t * d * 4 + 2 * (2 * bh * t * 4 + bh * t * d * 4),
                       mem, tf32_peak, f32_peak),
     }
+    del q, k, v, m, l, o
+    # k-exaone's sliding layers' hop, W 128: B4 f32 and B3 f32, bounds from
+    # the window's pairs (benchmark/counts_lm.py)
+    from benchmark import counts_lm
+
+    wb, wt, wd = WINDOW_HOP
+    (q, k, v, do, lse, dsum), (dq, dk, dv) = _hop_inputs(gen, torch.float32, wb, wt, wt, wd, 0,
+                                                         0, True, WINDOW)
+    m = torch.full((wb, wt), fa.NEG_INF, device="cuda")
+    l, o = torch.zeros((wb, wt), device="cuda"), torch.zeros((wb, wt, wd), device="cuda")
+    for key, work, fn in (
+            ("backward_float32_window", counts_lm.b4_f32_work,
+             lambda: fb.flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, 0, 0, True,
+                                             WINDOW)),
+            ("update_f32_window", counts_lm.b3_f32_work,
+             lambda: fa.flash_block_update(q, k, v, 0, 0, m, l, o, True, WINDOW))):
+        flops, nbytes = work(wb, wt, wd, WINDOW)
+        rows[key] = {"shape": [wb, wt, wd], "dtype": "float32", "causal": True,
+                     "window": WINDOW, "ms": time_ms(fn, reps=5, per=3), "plain_ms": None,
+                     "library_ms": None, **_f32_bounds(flops, nbytes, mem, tf32_peak, f32_peak),
+                     "bound_one_pass_ms": _bound(flops, nbytes, (mem, tf32_peak))["bound_ms"]}
+    del q, k, v, do, lse, dsum, dq, dk, dv, m, l, o
     for key, row in rows.items():
         row["bound_share"] = row["bound_ms"] / row["ms"]
         if "bound_simt_ms" in row:
@@ -3088,6 +3190,7 @@ def main() -> int:
     forward_launches, forward_paths, update_launches = attention_phase(count)
     dma_launches = probes_phase(count)
     train_fwd_launches, train_bwd_launches, _ = training_phase(count)
+    lm_fwd_launches, lm_bwd_launches = lm_training_phase(count)
     census_phase(count)
     multihost_phase(count)
     serving = serving_phase(count)
@@ -3179,7 +3282,9 @@ def main() -> int:
         "route": "cuda",
         "source": train_source,
         "replaces": "tpu_operator/workloads/ring_attention.py:118",
-        "launches": train_fwd_launches,
+        "launches": train_fwd_launches + lm_fwd_launches,
+        "launches_by_check": {",".join(TRAIN_CHECKS): train_fwd_launches,
+                              LM_MODEL: lm_fwd_launches},
         "max_abs_err": train_err["flash_block_update_f32"],
         **entry(tt["update_f32"]),
         "bound_simt_ms": tt["update_f32"]["bound_simt_ms"],
@@ -3190,7 +3295,9 @@ def main() -> int:
         "route": "cuda",
         "source": train_source,
         "replaces": "tpu_operator/workloads/ring_attention.py:577",
-        "launches": train_bwd_launches,
+        "launches": train_bwd_launches + lm_bwd_launches,
+        "launches_by_check": {",".join(TRAIN_CHECKS): train_bwd_launches,
+                              LM_MODEL: lm_bwd_launches},
         "max_abs_err": train_err["flash_block_backward"],
         **entry(tt["backward_float32"]),
         "bound_simt_ms": tt["backward_float32"]["bound_simt_ms"],

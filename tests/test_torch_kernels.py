@@ -597,10 +597,10 @@ TRAIN_CASES = [
 ]
 
 
-def _hop(device, dtype, bh, tq, tk, d, q_off, k_off, causal, seed=0):
+def _hop(device, dtype, bh, tq, tk, d, q_off, k_off, causal, seed=0, window=0):
     """A hop's inputs as the remat backward sees them: q, k, v, dO, the
-    forward's lse and dsum = rowsum(dO * O), and non-zero incoming
-    accumulators."""
+    forward's lse and dsum = rowsum(dO * O) (under the sliding ``window``
+    when one is given), and non-zero incoming accumulators."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def randn(*shape):
@@ -609,7 +609,7 @@ def _hop(device, dtype, bh, tq, tk, d, q_off, k_off, causal, seed=0):
     q, do = randn(bh, tq, d).to(dtype), randn(bh, tq, d).to(dtype)
     k, v = randn(bh, tk, d).to(dtype), randn(bh, tk, d).to(dtype)
     m, l, o = fa.flash_block_update_reference(q.float(), k.float(), v.float(), q_off, k_off,
-                                              *_fresh(bh, tq, d, device), causal)
+                                              *_fresh(bh, tq, d, device), causal, window)
     denom = torch.where(l > 0, l, 1.0)
     lse = m + torch.log(denom)
     dsum = (do.float() * (o / denom[..., None])).sum(-1)
@@ -706,6 +706,82 @@ def test_training_kernels_are_deterministic(cuda, kernel, bh, tq, tk, d, q_off, 
             runs.append(state)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# bh, tq, tk, q_off, k_off, window at D 128: the sliding layers' hop (a
+# sequence's own keys) at W 128 and 1024, W past T (the causal hop), a hop
+# whose keys precede the queries (only the band's edge seen; offsets),
+# one wholly before the band, and ragged T
+WINDOW_CASES = [
+    (8, 1024, 1024, 0, 0, 128),
+    (8, 2048, 2048, 0, 0, 1024),
+    (4, 1024, 1024, 0, 0, 4096),
+    (4, 1024, 1024, 1024, 0, 128),
+    (4, 1024, 1024, 1536, 512, 1024),
+    (4, 512, 512, 2048, 0, 128),
+    (2, 300, 420, 120, 0, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh, tq, tk, q_off, k_off, window", WINDOW_CASES)
+def test_windowed_f32_kernels_match_plain(cuda, bh, tq, tk, q_off, k_off, window):
+    """B4 f32 and B3 f32 with a sliding window against their plain versions,
+    each launched twice, bit-identical; a hop outside the band changes
+    nothing."""
+    d = 128
+    args, acc = _hop(cuda, torch.float32, bh, tq, tk, d, q_off, k_off, True, seed=11,
+                     window=window)
+    runs = []
+    for _ in range(2):
+        mine = tuple(a.clone() for a in acc)
+        fb.flash_block_backward(*args, *mine, q_off, k_off, True, window)
+        runs.append(mine)
+    q, k, v = args[:3]
+    state = _fresh(bh, tq, d, cuda)
+    folds = []
+    for _ in range(2):
+        fold = tuple(x.clone() for x in state)
+        fa.flash_block_update(q, k, v, q_off, k_off, *fold, True, window)
+        folds.append(fold)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.equal(a, b) for a, b in zip(*folds))
+    if q_off + tq - 1 - (k_off + tk - 1) >= window and q_off - k_off - tk + 1 >= window:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], acc))
+        assert all(torch.equal(a, b) for a, b in zip(folds[0], state))
+        return
+    ref = fb.flash_block_backward_reference(*args, *acc, q_off, k_off, True, window)
+    for got, want, a in zip(runs[0], ref, acc):
+        assert _scaled(got - a, want - a) <= F32_RTOL
+    m, l, o = folds[0]
+    rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *state, True, window)
+    seen = rl > 0
+    assert torch.equal(seen, l > 0)
+    assert _rel(m[seen], rm[seen]) <= STATE_RTOL and _scaled(l, rl) <= F32_RTOL
+    out, ref = o / l.clamp_min(1e-30)[..., None], ro / rl.clamp_min(1e-30)[..., None]
+    assert _scaled(out[seen], ref[seen]) <= F32_RTOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["backward", "update"])
+def test_a_window_past_the_sequence_is_the_causal_path_bit_for_bit(cuda, kernel):
+    """At the probe's hop (128, 2048, 128) a window of 2048 or more hides
+    no key: the kernels give the causal path's bits exactly."""
+    bh, t, d = 128, 2048, 128
+    args, acc = _hop(cuda, torch.float32, bh, t, t, d, 0, 0, True, seed=12)
+    outs = []
+    for window in (0, t, 1 << 20):
+        if kernel == "backward":
+            out = tuple(a.clone() for a in acc)
+            fb.flash_block_backward(*args, *out, 0, 0, True, window)
+        else:
+            out = _fresh(bh, t, d, cuda)
+            fa.flash_block_update(*args[:3], 0, 0, *out, True, window)
+        outs.append(out)
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(outs[0], other))
 
 
 @pytest.mark.cuda

@@ -13,7 +13,8 @@
 //       `mma.sync`.
 //
 // Numerics are the reference's.  Scores s = dot_f32(q, k) * scale, masked
-// scores are out (causal on global positions q_off + row >= k_off + col),
+// scores are out (causal on global positions q_off + row >= k_off + col;
+// with a sliding window W, f32 only, also q_off + row - k_off - col < W),
 // and the guard s <= NEG_INF / 2 -> 0 with NEG_INF = -1e30.
 //   Backward: P = exp(s - lse) from the forward's saved lse; dV += P^T dO;
 //   dP = dO V^T; dS = P (dP - D) with D = rowsum(dO O) given; dQ += dS K
@@ -60,7 +61,16 @@
 //     sees.
 // Under the causal mask the blocks with the most tiles launch first and
 // tiles past the diagonal are never loaded; a block with no visible tile
-// writes nothing, so a fully masked hop leaves dq/dk/dv bit for bit.
+// writes nothing, so a fully masked hop leaves dq/dk/dv bit for bit.  A
+// sliding window bounds the walks at the band's far edge too: dk/dv's walk
+// over q tiles ends at the last row that sees the block's last key, dq's
+// and the fold's walk over key tiles starts at the first key the block's
+// first row sees, so tiles wholly outside the band are never loaded either.
+// The band is a compile-time choice (`kBand`) with kernels of its own
+// (`fold_band_kernel`, `dkdv_band_kernel`, `dq_band_kernel`), launched for a
+// hop with a window, so a hop without one runs the causal kernels as they
+// were, with no extra test; the banded instances fold the causal test and
+// the band's into one unsigned compare, 0 <= query - key < W.
 //
 // f32 (`dkdv_f32`, `dq_f32`): three warpgroups, 384 threads.  A producer
 // (setmaxnreg 40) loads the fixed tile pair (K and V, or Q and dO: 64 rows)
@@ -152,6 +162,12 @@ constexpr int kRows = kWarps * 16;  // rows of a block's fixed tile
 constexpr int kStages = 2;
 constexpr int kBwdStep = 32;   // rows of a walked tile in the backward kernels
 constexpr int kFoldStep = 64;  // keys of a walked tile in the fold
+// the window of a causal hop with no band: larger than any distance between
+// a query and a key (tiles' offsets are clamped to kFar), so that 0 <=
+// query - key < kNoWindow is the causal test alone
+constexpr int kNoWindow = 1 << 30;
+constexpr int kFar = 1 << 28;
+constexpr int64_t kMaxWindow = 1 << 27;  // a window at least this long is none
 
 template <typename T>
 struct BwdParams {
@@ -167,6 +183,7 @@ struct BwdParams {
   int bh, tq, tk, d;
   int64_t q_off, k_off;
   int causal;
+  int window;  // a key at query - key >= window is out; kNoWindow: none
   float scale;
 };
 
@@ -180,6 +197,7 @@ struct FoldParams {
   int bh, tq, tk, d;
   int64_t q_off, k_off;
   int causal;
+  int window;  // a key at query - key >= window is out; kNoWindow: none
   float scale;
 };
 
@@ -937,15 +955,16 @@ __device__ __forceinline__ void cols_product(float (&c)[NT][32], const unsigned 
 // of the tile; with QA its query is a and its key b (dq), else the other
 // way round (dk/dv), and its lse is lse[e / 2] or lse[2j + e % 2].  A query
 // at index >= q_left lies past Tq, a key at >= k_left past Tk, and a pair
-// is causally masked when query - key + diag < 0, diag being the tile's
-// first query's position less its first key's, clamped (or large when not
-// causal): 32-bit tests, in a branch of their own, so a tile with every
-// pair live pays for none.  exp is 2^(x log2 e) on the MUFU unit with
+// is masked when query - key + diag < 0 (with `kBand` unless 0 <= query -
+// key + diag < window, one unsigned compare), diag being the tile's first
+// query's position less its first key's, clamped (or kFar when not causal):
+// 32-bit tests, in a branch of their own, so a tile with every pair live
+// pays for none.  exp is 2^(x log2 e) on the MUFU unit with
 // subnormal results flushed to zero (ex2.approx.ftz, as B5's prefill):
 // a P under 2^-126 adds nothing an f32 sum keeps.
-template <bool QA>
+template <bool QA, bool kBand>
 __device__ __forceinline__ void probs(float (&c)[16], const float (&lse)[8], float scale,
-                                      bool full, int q_left, int k_left, int diag) {
+                                      bool full, int q_left, int k_left, int diag, int window) {
   if (!full) {
     const int l = threadIdx.x % 128;
     const int a0 = 16 * (l / 32) + (l % 32) / 4;
@@ -958,7 +977,8 @@ __device__ __forceinline__ void probs(float (&c)[16], const float (&lse)[8], flo
         const int b = b0 + 8 * j + (e & 1);
         const int q = QA ? a : b;
         const int k = QA ? b : a;
-        if (q >= q_left || k >= k_left || q - k + diag < 0) {
+        const bool out = kBand ? (unsigned)(q - k + diag) >= (unsigned)window : q - k + diag < 0;
+        if (q >= q_left || k >= k_left || out) {
           c[4 * j + e] = __int_as_float(0xff800000);  // -inf: x under the guard
         }
       }
@@ -980,9 +1000,10 @@ __device__ __forceinline__ void probs(float (&c)[16], const float (&lse)[8], flo
 }
 
 // The causal offset of a tile whose first query sits at q_pos and first key
-// at k_pos, clamped to 32 bits (tiles are far smaller); large when not causal.
+// at k_pos, clamped to +-kFar (tiles are far smaller, windows shorter than
+// kMaxWindow); kFar when not causal.
 __device__ __forceinline__ int tile_diag(bool causal, int64_t q_pos, int64_t k_pos) {
-  const int64_t far = 1 << 20;
+  const int64_t far = kFar;
   if (!causal) return (int)far;
   const int64_t d = q_pos - k_pos;
   return (int)(d > far ? far : d < -far ? -far : d);
@@ -1127,30 +1148,39 @@ __device__ __forceinline__ void flush(float (&acc)[NT][32], float* out, int64_t 
 // Warpgroup 0 runs S^T = K Q^T, P^T, then dV^T += dO^T P^T; warpgroup 1
 // dP^T = V dO^T, dS^T = P^T (dP^T - D) with P^T from warpgroup 0, then
 // dK^T += Q^T dS^T; warpgroup 2 produces.
-template <int DP>
+template <int DP, bool kBand>
 __device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams<float>& p,
                                          unsigned char* raw) {
   using L = Wg<DP>;
   constexpr int kTiles = DP / 64;  // m tiles of dK^T and dV^T
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kFixedRows;  // key tile 0 sees the most q tiles: first
-  const int n_q = (p.tq + kWalkRows - 1) / kWalkRows;
   int first = 0;
+  int last = (p.tq + kWalkRows - 1) / kWalkRows;
   if (p.causal) {
     // query rows before `need` see none of this tile's keys
     const int64_t need = p.k_off + k0 - p.q_off;
     if (need >= p.tq) {
-      first = n_q;
+      first = last;
     } else if (need > 0) {
       first = (int)(need / kWalkRows);
     }
+    if constexpr (kBand) {
+      // nor do rows after `stop`, past the band of the tile's last key
+      const int64_t stop = p.k_off + k0 + kFixedRows - 2 + p.window - p.q_off;
+      if (stop < 0) {
+        last = 0;
+      } else if (stop / kWalkRows + 1 < last) {
+        last = (int)(stop / kWalkRows + 1);
+      }
+    }
   }
-  if (first >= n_q) return;  // a fully masked tile: dk/dv untouched
+  if (first >= last) return;  // a fully masked tile: dk/dv untouched
 
   uint32_t s32;
   unsigned char* s = wg_setup<DP>(raw, s32);
   const int64_t qbase = (int64_t)bh * p.tq;
-  const int n = n_q - first;
+  const int n = last - first;
   if (threadIdx.x >= kConsumers) {
     produce<DP>(s, s32, &maps.k, &maps.v, k0, &maps.q, &maps.dout, first, n, bh, p.lse, p.dsum,
                 qbase, p.tq);
@@ -1200,9 +1230,11 @@ __device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams<float
       rows_product<DP>(c, x_hi, s32 + L::kX, s32 + q_hi, s32 + q_lo);  // S^T = K Q^T
       // every (key, row) pair live: no mask to evaluate
       const bool full = q0 + kWalkRows <= p.tq && k0 + kFixedRows <= p.tk &&
-                        (!p.causal || p.q_off + q0 >= p.k_off + k0 + kFixedRows - 1);
-      probs<false>(c, rv, p.scale, full, p.tq - q0, p.tk - k0,
-                   tile_diag(p.causal, p.q_off + q0, p.k_off + k0));
+                        (!p.causal || (p.q_off + q0 >= p.k_off + k0 + kFixedRows - 1 &&
+                                       (!kBand || p.q_off + q0 + kWalkRows - 1 - p.k_off - k0 <
+                                                      p.window)));
+      probs<false, kBand>(c, rv, p.scale, full, p.tq - q0, p.tk - k0,
+                   tile_diag(p.causal, p.q_off + q0, p.k_off + k0), p.window);
       if (i > 0) bar_sync(5, kConsumers);  // warpgroup 1 is done with Ds of tile i - 1
 #pragma unroll
       for (int e = 0; e < 16; ++e) praw[e * 128 + l] = c[e];
@@ -1237,7 +1269,7 @@ __device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams<float
 // it sees, added into dq every kFlushTiles tiles and at the end.  Warpgroup 0 runs S = Q K^T and
 // P; warpgroup 1 dP = dO V^T and dS = P (dP - D); then warpgroup m runs m
 // tile m of dQ^T += K^T dS^T; warpgroup 2 produces.
-template <int DP>
+template <int DP, bool kBand>
 __device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>& p,
                                        unsigned char* raw) {
   using L = Wg<DP>;
@@ -1246,20 +1278,27 @@ __device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>&
   // the causal q tiles see more keys the later they are: last tiles first
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kFixedRows;
   int n_k = (p.tk + kWalkRows - 1) / kWalkRows;
+  int first = 0;
   if (p.causal) {
     // the last key any row of this tile sees
     const int last_row = min(q0 + kFixedRows, p.tq) - 1;
     const int64_t last_key = p.q_off + last_row - p.k_off;
     const int64_t need = last_key < 0 ? 0 : last_key / kWalkRows + 1;
     if (need < n_k) n_k = (int)need;
+    if constexpr (kBand) {
+      // the first key the tile's first row sees in its band
+      const int64_t first_key = p.q_off + q0 - p.window + 1 - p.k_off;
+      if (first_key > 0) first = first_key / kWalkRows < n_k ? (int)(first_key / kWalkRows) : n_k;
+    }
   }
-  if (n_k == 0) return;  // every key past every query: dq untouched
+  if (first >= n_k) return;  // every key outside every query's band: dq untouched
+  const int n = n_k - first;
 
   uint32_t s32;
   unsigned char* s = wg_setup<DP>(raw, s32);
   if (threadIdx.x >= kConsumers) {
-    produce<DP>(s, s32, &maps.q, &maps.dout, q0, &maps.k, &maps.v, 0, n_k, bh, nullptr, nullptr,
-                0, 0);
+    produce<DP>(s, s32, &maps.q, &maps.dout, q0, &maps.k, &maps.v, first, n, bh, nullptr,
+                nullptr, 0, 0);
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
@@ -1289,20 +1328,22 @@ __device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>&
   split_fixed<DP>(s + x_at, x_hi);
   fence_async();
   bar_sync(1, kConsumers);
-  for (int jt = 0; jt < n_k; ++jt) {
-    const int st = jt & 1;
-    const int kt0 = jt * kWalkRows;
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    const int kt0 = (first + i) * kWalkRows;
     const int k_hi = L::kRing + st * 2 * L::kWalkBytes;  // V's at + kWalkBytes
     const int k_lo = L::kLo + st * 2 * L::kWalkBytes;
-    mbar_wait(bars + 24 + 8 * st, (jt >> 1) & 1);  // split and ready
+    mbar_wait(bars + 24 + 8 * st, (i >> 1) & 1);  // split and ready
     float c[16];
     if (wg == 0) {
       rows_product<DP>(c, x_hi, s32 + L::kX, s32 + k_hi, s32 + k_lo);  // S = Q K^T
       const bool full = q0 + kFixedRows <= p.tq && kt0 + kWalkRows <= p.tk &&
-                        (!p.causal || p.q_off + q0 >= p.k_off + kt0 + kWalkRows - 1);
-      probs<true>(c, rv, p.scale, full, p.tq - q0, p.tk - kt0,
-                  tile_diag(p.causal, p.q_off + q0, p.k_off + kt0));
-      if (jt > 0) bar_sync(5, kConsumers);  // warpgroup 1 is done with Ds of tile jt - 1
+                        (!p.causal || (p.q_off + q0 >= p.k_off + kt0 + kWalkRows - 1 &&
+                                       (!kBand || p.q_off + q0 + kFixedRows - 1 - p.k_off - kt0 <
+                                                      p.window)));
+      probs<true, kBand>(c, rv, p.scale, full, p.tq - q0, p.tk - kt0,
+                  tile_diag(p.causal, p.q_off + q0, p.k_off + kt0), p.window);
+      if (i > 0) bar_sync(5, kConsumers);  // warpgroup 1 is done with Ds of tile i - 1
 #pragma unroll
       for (int e = 0; e < 16; ++e) praw[e * 128 + l] = c[e];
       bar_arrive(2, kConsumers);  // P for warpgroup 1
@@ -1320,9 +1361,9 @@ __device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>&
     bar_sync(3, kConsumers);  // dS for both warpgroups
     // dQ^T += K^T dS^T
     if (wg < kTiles) cols_product(acc, s + k_hi, s + k_lo, off, wg, s32 + L::kDs);
-    if (wg == 1 && jt + 1 < n_k) bar_arrive(5, kConsumers);
+    if (wg == 1 && i + 1 < n) bar_arrive(5, kConsumers);
     mbar_arrive(bars + 40 + 8 * st);  // the stage is free
-    if (wg < kTiles && ((jt + 1) % kFlushTiles == 0 || jt + 1 == n_k)) {
+    if (wg < kTiles && ((i + 1) % kFlushTiles == 0 || i + 1 == n)) {
       flush(acc, p.dq, qbase, q0, p.tq, 64 * wg, p.d, p.scale);
     }
   }
@@ -1342,7 +1383,7 @@ __global__ void __launch_bounds__(sizeof(T) == 4 ? kConsumers + 128 : kThreads, 
     dkdv_kernel(const __grid_constant__ Maps maps, const BwdParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   if constexpr (sizeof(T) == 4) {
-    dkdv_f32<DP>(maps, p, smem);
+    dkdv_f32<DP, false>(maps, p, smem);
   } else {
     dkdv_mma<T, DP>(p, smem);
   }
@@ -1353,10 +1394,26 @@ __global__ void __launch_bounds__(sizeof(T) == 4 ? kConsumers + 128 : kThreads, 
     dq_kernel(const __grid_constant__ Maps maps, const BwdParams<T> p) {
   extern __shared__ __align__(128) unsigned char smem[];
   if constexpr (sizeof(T) == 4) {
-    dq_f32<DP>(maps, p, smem);
+    dq_f32<DP, false>(maps, p, smem);
   } else {
     dq_mma<T, DP>(p, smem);
   }
+}
+
+// B4 f32 with a sliding window: kernels of their own, so that the causal
+// kernels above stay as they were (the benchmark reads these names too).
+template <int DP>
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    dkdv_band_kernel(const __grid_constant__ Maps maps, const BwdParams<float> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dkdv_f32<DP, true>(maps, p, smem);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    dq_band_kernel(const __grid_constant__ Maps maps, const BwdParams<float> p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  dq_f32<DP, true>(maps, p, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -1369,15 +1426,14 @@ constexpr int fold_smem() {
 
 // One block per (bh, 128-row q tile) folds every 64-key tile it sees into
 // the (m, l, o) state of its rows, held in registers, and writes the state
-// back once.  A tile past the causal diagonal is skipped: its update is an
-// exact no-op.
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams p) {
+// back once.  A tile past the causal diagonal, or before the band of a
+// sliding window, is skipped: its update is an exact no-op.
+template <int DP, bool kBand>
+__device__ __forceinline__ void fold_f32(const FoldParams& p, unsigned char* smem) {
   using L = Smem<float, DP>;
   constexpr int kFixed = kRows * L::kRowElems;
   constexpr int kStep = kFoldStep * L::kRowElems;
   constexpr int kN = kFoldStep / 8;
-  extern __shared__ __align__(128) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   float* ks = qs + kFixed;          // [stage][kFoldStep rows]
   float* vs = ks + kStages * kStep;  // [stage][kFoldStep rows]
@@ -1389,13 +1445,19 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
   const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
   const int wq0 = q0 + warp * 16;
   int n_k = (p.tk + kFoldStep - 1) / kFoldStep;
+  int first = 0;
   if (p.causal) {
     const int last_row = min(q0 + kRows, p.tq) - 1;
     const int64_t last_key = p.q_off + last_row - p.k_off;
     const int64_t need = last_key < 0 ? 0 : last_key / kFoldStep + 1;
     if (need < n_k) n_k = (int)need;
+    if constexpr (kBand) {
+      // the first key the block's first row sees in its band
+      const int64_t first_key = p.q_off + q0 - p.window + 1 - p.k_off;
+      if (first_key > 0) first = first_key / kFoldStep < n_k ? (int)(first_key / kFoldStep) : n_k;
+    }
   }
-  if (n_k == 0) return;  // a fully masked block: the state stays as it is
+  if (first >= n_k) return;  // a fully masked block: the state stays as it is
 
   const int64_t kbase = (int64_t)bh * p.tk;
   const int64_t qbase = (int64_t)bh * p.tq;
@@ -1404,7 +1466,7 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
     stage<float, DP, kFoldStep>(vs + s * kStep, p.v, kbase, p.tk, p.d, jt * kFoldStep);
   };
   stage<float, DP, kRows>(qs, p.q, qbase, p.tq, p.d, q0);
-  stage_k(0, 0);
+  stage_k(first, 0);
   cp_async_commit();
 
   float m[2];
@@ -1428,8 +1490,10 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
   }
 
   const int64_t last_q = p.q_off + min(wq0 + 16, p.tq) - 1;
-  for (int jt = 0; jt < n_k; ++jt) {
-    const int s = jt % kStages;
+  // the distance from this warp's first row to a tile's last key, less kt0
+  const int64_t reach = p.q_off + wq0 - p.k_off - (kFoldStep - 1);
+  for (int jt = first; jt < n_k; ++jt) {
+    const int s = (jt - first) % kStages;
     if (jt + 1 < n_k) stage_k(jt + 1, s ^ 1);
     cp_async_commit();
     cp_async_wait_1();
@@ -1437,7 +1501,8 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
     const float* kt = ks + s * kStep;
     const float* vt = vs + s * kStep;
     const int kt0 = jt * kFoldStep;
-    if (wq0 < p.tq && (!p.causal || last_q >= p.k_off + kt0)) {
+    const bool sees = !p.causal || (last_q >= p.k_off + kt0 && (!kBand || reach - kt0 < p.window));
+    if (wq0 < p.tq && sees) {
       float sc[kN][4];
       rows_dot<float, DP>(sc, qs, warp * 16, kt);
       float mx[2] = {kNegInf, kNegInf};
@@ -1447,7 +1512,10 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
         for (int i = 0; i < 4; ++i) {
           const int row = wq0 + g + 8 * (i >> 1);
           const int key = kt0 + 8 * j + 2 * t4 + (i & 1);
-          const bool live = key < p.tk && (!p.causal || p.q_off + row >= p.k_off + key);
+          const bool seen =
+              kBand ? (uint64_t)(p.q_off + row - p.k_off - key) < (uint64_t)p.window
+                    : p.q_off + row >= p.k_off + key;
+          const bool live = key < p.tk && (!p.causal || seen);
           sc[j][i] = live ? sc[j][i] * p.scale : kNegInf;
           mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
         }
@@ -1514,6 +1582,19 @@ __global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams 
   }
 }
 
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  fold_f32<DP, false>(p, smem);
+}
+
+// the fold with a sliding window, a kernel of its own as B4's
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1) fold_band_kernel(const FoldParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  fold_f32<DP, true>(p, smem);
+}
+
 // ---------------------------------------------------------------------------
 // launches
 
@@ -1529,16 +1610,26 @@ template <int DP>
 int launch_backward_f32(const Maps& maps, const BwdParams<float>& p, cudaStream_t stream) {
   constexpr int kSmem = Wg<DP>::kSmem;
   static_assert(kSmem <= 232448, "a block's shared memory");
+  const dim3 dkdv_grid(p.bh, tiles(p.tk, kFixedRows)), dq_grid(p.bh, tiles(p.tq, kFixedRows));
+  if (p.window != kNoWindow) {
+    int err = set_smem(dkdv_band_kernel<DP>, kSmem);
+    if (err != 0) return err;
+    err = set_smem(dq_band_kernel<DP>, kSmem);
+    if (err != 0) return err;
+    dkdv_band_kernel<DP><<<dkdv_grid, kConsumers + 128, kSmem, stream>>>(maps, p);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+    dq_band_kernel<DP><<<dq_grid, kConsumers + 128, kSmem, stream>>>(maps, p);
+    return (int)cudaGetLastError();
+  }
   int err = set_smem(dkdv_kernel<float, DP>, kSmem);
   if (err != 0) return err;
   err = set_smem(dq_kernel<float, DP>, kSmem);
   if (err != 0) return err;
-  dkdv_kernel<float, DP><<<dim3(p.bh, tiles(p.tk, kFixedRows)), kConsumers + 128, kSmem,
-                           stream>>>(maps, p);
+  dkdv_kernel<float, DP><<<dkdv_grid, kConsumers + 128, kSmem, stream>>>(maps, p);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  dq_kernel<float, DP><<<dim3(p.bh, tiles(p.tq, kFixedRows)), kConsumers + 128, kSmem,
-                         stream>>>(maps, p);
+  dq_kernel<float, DP><<<dq_grid, kConsumers + 128, kSmem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -1601,9 +1692,16 @@ template <int DP>
 int launch_fold(const FoldParams& p, cudaStream_t stream) {
   constexpr int kSmem = fold_smem<DP>();
   static_assert(kSmem <= 232448, "a block's shared memory");
+  const dim3 grid(p.bh, tiles(p.tq, kRows));
+  if (p.window != kNoWindow) {
+    const int err = set_smem(fold_band_kernel<DP>, kSmem);
+    if (err != 0) return err;
+    fold_band_kernel<DP><<<grid, kThreads, kSmem, stream>>>(p);
+    return (int)cudaGetLastError();
+  }
   const int err = set_smem(fold_f32_kernel<DP>, kSmem);
   if (err != 0) return err;
-  fold_f32_kernel<DP><<<dim3(p.bh, tiles(p.tq, kRows)), kThreads, kSmem, stream>>>(p);
+  fold_f32_kernel<DP><<<grid, kThreads, kSmem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -1615,9 +1713,17 @@ bool bad_shape(int bh, int tq, int tk, int d) {
 // the copies move 16 bytes of q/k/v/dO at a time, the write-backs 8 of f32
 bool misaligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes != 0; }
 
+// The kernels' window of a hop: kNoWindow unless causal with a window
+// shorter than kMaxWindow (a longer one hides no key of any block).
+int band(int causal, int window) {
+  return causal && window > 0 && window < kMaxWindow ? window : kNoWindow;
+}
+
 template <typename T>
 int backward(const BwdParams<T>& p, cudaStream_t stream) {
   if (bad_shape(p.bh, p.tq, p.tk, p.d)) return (int)cudaErrorInvalidValue;
+  // bf16's mma.sync kernels have no band
+  if (sizeof(T) != 4 && p.window != kNoWindow) return (int)cudaErrorInvalidValue;
   if (misaligned(p.q, 16) || misaligned(p.k, 16) || misaligned(p.v, 16) ||
       misaligned(p.dout, 16) || misaligned(p.lse, 4) || misaligned(p.dsum, 4) ||
       misaligned(p.dq, 8) || misaligned(p.dk, 8) || misaligned(p.dv, 8)) {
@@ -1634,8 +1740,8 @@ int backward(const BwdParams<T>& p, cudaStream_t stream) {
 template <typename T>
 int backward_entry(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* dsum, float* dq, float* dk, float* dv, int bh,
-                   int tq, int tk, int d, int64_t q_off, int64_t k_off, int causal, float scale,
-                   cudaStream_t stream) {
+                   int tq, int tk, int d, int64_t q_off, int64_t k_off, int causal, int window,
+                   float scale, cudaStream_t stream) {
   BwdParams<T> p{};
   p.q = static_cast<const T*>(q);
   p.k = static_cast<const T*>(k);
@@ -1653,6 +1759,7 @@ int backward_entry(const void* q, const void* k, const void* v, const void* dout
   p.q_off = q_off;
   p.k_off = k_off;
   p.causal = causal;
+  p.window = band(causal, window);
   p.scale = scale;
   return backward(p, stream);
 }
@@ -1673,37 +1780,39 @@ int backward_smem_bf16(int d, int which) {
 // One ring hop's backward: adds this hop's dq [BH, Tq, D], dk and dv [BH,
 // Tk, D] (f32, in place) from q, dout [BH, Tq, D] and k, v [BH, Tk, D] (f32,
 // or bf16 in the _bf16 entry), lse and dsum [BH, Tq] f32; all contiguous; D
-// a multiple of 8 up to 128; q/k/v/dout 16-byte aligned.  Two kernels on
-// `stream`, no synchronize; returns the first failing launch's cudaError_t
-// (0 on success).
+// a multiple of 8 up to 128; q/k/v/dout 16-byte aligned.  `window` > 0 on a
+// causal hop keeps only keys within window - 1 positions before a query
+// (f32 only; 0 for none).  Two kernels on `stream`, no synchronize; returns
+// the first failing launch's cudaError_t (0 on success).
 extern "C" int tpu_flash_block_backward_f32(const void* q, const void* k, const void* v,
                                             const void* dout, const float* lse,
                                             const float* dsum, float* dq, float* dk, float* dv,
                                             int bh, int tq, int tk, int d, int64_t q_off,
-                                            int64_t k_off, int causal, float scale,
+                                            int64_t k_off, int causal, int window, float scale,
                                             cudaStream_t stream) {
   return backward_entry<float>(q, k, v, dout, lse, dsum, dq, dk, dv, bh, tq, tk, d, q_off, k_off,
-                               causal, scale, stream);
+                               causal, window, scale, stream);
 }
 
 extern "C" int tpu_flash_block_backward_bf16(const void* q, const void* k, const void* v,
                                              const void* dout, const float* lse,
                                              const float* dsum, float* dq, float* dk, float* dv,
                                              int bh, int tq, int tk, int d, int64_t q_off,
-                                             int64_t k_off, int causal, float scale,
-                                             cudaStream_t stream) {
+                                             int64_t k_off, int causal, int window,
+                                             float scale, cudaStream_t stream) {
   return backward_entry<__nv_bfloat16>(q, k, v, dout, lse, dsum, dq, dk, dv, bh, tq, tk, d, q_off,
-                                       k_off, causal, scale, stream);
+                                       k_off, causal, window, scale, stream);
 }
 
 // Kernel B3 on f32: folds k, v [BH, Tk, D] into the online-softmax state of
 // q [BH, Tq, D]: m, l [BH, Tq] and o [BH, Tq, D], updated in place; all f32
 // and contiguous, q/k/v 16-byte aligned.  The signature of
-// tpu_flash_block_update_bf16.
+// tpu_flash_block_update_bf16 with the sliding window after `causal`, as in
+// the backward's entries.
 extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const void* v, float* m,
                                           float* l, float* o, int bh, int tq, int tk, int d,
-                                          int64_t q_off, int64_t k_off, int causal, float scale,
-                                          cudaStream_t stream) {
+                                          int64_t q_off, int64_t k_off, int causal, int window,
+                                          float scale, cudaStream_t stream) {
   if (bad_shape(bh, tq, tk, d)) return (int)cudaErrorInvalidValue;
   if (misaligned(q, 16) || misaligned(k, 16) || misaligned(v, 16) || misaligned(o, 8)) {
     return (int)cudaErrorMisalignedAddress;
@@ -1723,6 +1832,7 @@ extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const vo
   p.q_off = q_off;
   p.k_off = k_off;
   p.causal = causal;
+  p.window = band(causal, window);
   p.scale = scale;
   if (d <= 16) return launch_fold<16>(p, stream);
   if (d <= 32) return launch_fold<32>(p, stream);

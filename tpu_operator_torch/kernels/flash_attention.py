@@ -22,7 +22,8 @@ plain PyTorch versions.
   (the ring hop's 4 x 512 rows fill the card that way); f32 q/k/v, the
   transformer step's (its weights are f32), to ``tpu_flash_block_update_f32``
   in ``csrc/flash_backward.cu`` (3xTF32 ``mma.sync``: f32 products on the
-  tensor cores).
+  tensor cores), which also takes a sliding window: a causal fold that
+  keeps only the keys less than ``window`` positions before each query.
 
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.
@@ -175,12 +176,21 @@ def _forward_plan(bh: int, tq: int, tk: int, d: int, causal: bool, q_off: int, k
 # plain versions
 
 
-def online_softmax_block_update(causal, scale, q, k, v, m, l, acc, q_base, k_base):
+def visible(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """[Tq, Tk] mask of the keys each query sees under the causal mask:
+    key position <= query position and, with a sliding ``window`` (> 0),
+    query position - key position < window."""
+    gap = q_pos[:, None] - k_pos[None, :]
+    return (gap >= 0) & (gap < window) if window else gap >= 0
+
+
+def online_softmax_block_update(causal, scale, q, k, v, m, l, acc, q_base, k_base, window=0):
     """Fold one K/V block's scores into the (m, l, acc) online-softmax state;
     the reference's numerics exactly: f32 scores of the storage-dtype
     inputs, scaled after the product; masked scores NEG_INF; the fully
     masked guard; ``l`` sums the f32 ``e``; the PV product takes ``e``
-    rounded to v's dtype, accumulated in f32.
+    rounded to v's dtype, accumulated in f32.  ``window`` (causal only)
+    masks the keys ``window`` or more positions before a query too.
 
     Shapes: q [..., Bq, D], k/v [..., Bk, D], m/l [..., Bq, 1], acc
     [..., Bq, D] (leading dims batch, the reference's are absent).
@@ -189,7 +199,7 @@ def online_softmax_block_update(causal, scale, q, k, v, m, l, acc, q_base, k_bas
     if causal:
         q_pos = q_base + torch.arange(q.shape[-2], device=q.device)
         k_pos = k_base + torch.arange(k.shape[-2], device=q.device)
-        s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+        s = torch.where(visible(q_pos, k_pos, window), s, NEG_INF)
     blk_max = s.amax(dim=-1, keepdim=True)
     m_new = torch.maximum(m, blk_max)
     corr = torch.exp(m - m_new)
@@ -338,10 +348,10 @@ def flash_block_update_split_reference(q, k, v, q_off, k_off, m, l, o, causal):
     return m_new, l_new, o_new
 
 
-def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal):
+def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal, window=0):
     """The plain block update: the whole K/V block folded into each q-tile
-    (``_q_tile``) of the state.  Returns the new (m, l, o); the inputs are
-    left as they are."""
+    (``_q_tile``) of the state, under the sliding ``window`` when one is
+    given.  Returns the new (m, l, o); the inputs are left as they are."""
     tq, d = q.shape[1:]
     blk_q = _q_tile(tq, k.shape[1])
     scale = 1.0 / math.sqrt(d)
@@ -350,7 +360,7 @@ def flash_block_update_reference(q, k, v, q_off, k_off, m, l, o, causal):
         rows = slice(i, i + blk_q)
         mi, li, oi = online_softmax_block_update(
             causal, scale, q[:, rows], k, v, m[:, rows, None], l[:, rows, None], o[:, rows],
-            q_off + i, k_off,
+            q_off + i, k_off, window,
         )
         m_new[:, rows], l_new[:, rows], o_new[:, rows] = mi[..., 0], li[..., 0], oi
     return m_new, l_new, o_new
@@ -404,7 +414,8 @@ _ENTRIES = {  # source -> {entry: argtypes}
         # block_tokens, width, max_splits, split_pages, scale, stream
         "tpu_flash_paged_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
     },
-    "flash_backward": {"tpu_flash_block_update_f32": _UPDATE_ARGS},
+    # the bf16 update's, with the sliding window after ``causal``
+    "flash_backward": {"tpu_flash_block_update_f32": [*_UPDATE_ARGS[:13], _I, *_UPDATE_ARGS[13:]]},
 }
 
 
@@ -579,17 +590,29 @@ def flash_attention_paged(q, k_pool, v_pool, block_tables, lengths):
     return out, lse
 
 
-def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal):
+def _check_window(causal, window) -> int:
+    """A sliding window as the kernels take it: 0 for none, else positive
+    on a causal hop."""
+    window = int(window or 0)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: a sliding window is positive and causal")
+    return window
+
+
+def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal, window=0):
     """Fold one K/V block into the online-softmax state (kernel B3).
 
     q/k/v ``[BH, T, D]``, all bf16 or all f32; m, l ``[BH, Tq]`` and o
     ``[BH, Tq, D]`` f32; ``q_off``/``k_off`` are the blocks' global sequence
-    offsets.  Updates m, l and o IN PLACE (the counterpart of the TPU
-    kernel's ``input_output_aliases``) and returns them.  On a card the CUDA
-    kernel of q's dtype (current stream, not synchronized); on the CPU the
-    plain version, copied into the state."""
+    offsets; ``window`` > 0 (causal, f32 on a card) keeps only the keys
+    fewer than ``window`` positions before each query.  Updates m, l and o
+    IN PLACE (the counterpart of the TPU kernel's ``input_output_aliases``)
+    and returns them.  On a card the CUDA kernel of q's dtype (current
+    stream, not synchronized); on the CPU the plain version, copied into
+    the state."""
     global block_update_launches, block_update_f32_launches
     _check_qkv(q, k, v, dtypes=(torch.bfloat16, torch.float32))
+    window = _check_window(causal, window)
     bh, tq, d = q.shape
     for name, t, shape in (("m", m, (bh, tq)), ("l", l, (bh, tq)), ("o", o, (bh, tq, d))):
         if t.dtype != torch.float32 or tuple(t.shape) != shape or not t.is_contiguous():
@@ -599,18 +622,21 @@ def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal):
             raise ValueError(f"{name} on {t.device} but q on {q.device}")
     if not _on_card(q):
         for t, new in zip((m, l, o), flash_block_update_reference(q, k, v, q_off, k_off,
-                                                                  m, l, o, causal)):
+                                                                  m, l, o, causal, window)):
             t.copy_(new)
         return m, l, o
     _check_device(q, k, v, m, l, o)
     f32 = q.dtype == torch.float32
+    if window and not f32:
+        raise ValueError("the bf16 block update has no sliding window")
+    band = (window,) if f32 else ()
     lib = _bind("flash_backward" if f32 else "flash_attention")
     entry = lib.tpu_flash_block_update_f32 if f32 else lib.tpu_flash_block_update_bf16
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
-            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)),
+            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)), *band,
             1.0 / math.sqrt(d), stream,
         )
     if rc != 0:

@@ -41,8 +41,10 @@ from tpu_operator_torch.kernels.flash_attention import (
     NEG_INF,
     _check_device,
     _check_qkv,
+    _check_window,
     _on_card,
     _q_tile,
+    visible,
 )
 
 # launches of the CUDA kernel pair in this process: a run shows it went
@@ -55,11 +57,13 @@ backward_launches = 0
 Q_TILE_BUDGET = 1 << 20
 
 
-def flash_block_backward_reference(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causal):
+def flash_block_backward_reference(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causal,
+                                   window=0):
     """The plain block backward, tiled over q by ``_q_tile(tq, tk,
     Q_TILE_BUDGET)`` as the TPU kernel's grid is, with its numerics: f32
     scores of the storage-dtype inputs, scaled after the product; masked
-    scores NEG_INF and the guard; P and dS rounded to q's dtype before
+    scores (causal, and outside the sliding ``window`` when one is given)
+    NEG_INF and the guard; P and dS rounded to q's dtype before
     their products, accumulated in f32.  dq gains each tile's rows; dk and
     dv gain each tile's contribution in turn.  Returns the new (dq, dk, dv);
     the inputs are left as they are."""
@@ -76,7 +80,7 @@ def flash_block_backward_reference(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_
         if causal:
             q_pos = q_off + i + torch.arange(s.shape[1], device=q.device)
             k_pos = k_off + torch.arange(tk, device=q.device)
-            s = torch.where(q_pos[:, None] >= k_pos[None, :], s, NEG_INF)
+            s = torch.where(visible(q_pos, k_pos, window), s, NEG_INF)
         # exact probabilities from the saved lse; a row whose lse collapsed
         # to NEG_INF is guarded like the forward
         prob = torch.where(s <= NEG_INF * 0.5, 0.0, torch.exp(s - lse[:, rows, None]))
@@ -96,7 +100,7 @@ def _bind() -> ctypes.CDLL:
             fn.argtypes = [
                 *[ctypes.c_void_p] * 9,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
                 ctypes.c_void_p,
             ]
             fn.restype = ctypes.c_int
@@ -120,26 +124,31 @@ def _check(q, k, v, do, lse, dsum, dq, dk, dv) -> None:
             raise ValueError(f"{name} on {t.device} but q on {q.device}")
 
 
-def flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causal):
+def flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causal, window=0):
     """One hop's dq/dk/dv contributions (kernel B4), the reference's name and
     argument order.
 
     Merged layout: q/do/dq ``[BH, Tq, D]``, k/v/dk/dv ``[BH, Tk, D]``,
-    lse/dsum ``[BH, Tq]`` (the forward's saved log-sum-exp and
-    ``rowsum(dO * O)``); ``q_off``/``k_off`` are the blocks' global sequence
-    offsets.  dq, dk and dv are accumulators, updated IN PLACE (the TPU
-    kernel's aliased buffers) and returned.  On a card the CUDA kernels
-    (current stream, not synchronized); on the CPU the plain version,
-    copied into the accumulators."""
+    lse/dsum ``[BH, Tq]`` (the forward's saved log-sum-exp and ``rowsum(dO *
+    O)``); ``q_off``/``k_off`` are the blocks' global sequence offsets;
+    ``window`` > 0 (causal, f32 on a card) keeps only the keys fewer than
+    ``window`` positions before each query.  dq, dk and dv are accumulators,
+    updated IN PLACE (the TPU kernel's aliased buffers) and returned.  On a
+    card the CUDA kernels (current stream, not synchronized); on the CPU the
+    plain version, copied into the accumulators.
+    """
     global backward_launches
     _check(q, k, v, do, lse, dsum, dq, dk, dv)
+    window = _check_window(causal, window)
     if not _on_card(q):
         new = flash_block_backward_reference(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off,
-                                             causal)
+                                             causal, window)
         for t, n in zip((dq, dk, dv), new):
             t.copy_(n)
         return dq, dk, dv
     _check_device(q, k, v, do, lse, dsum, dq, dk, dv)
+    if window and q.dtype != torch.float32:
+        raise ValueError("the bf16 block backward has no sliding window")
     bh, tq, d = q.shape
     lib = _bind()
     entry = (lib.tpu_flash_block_backward_f32 if q.dtype == torch.float32
@@ -148,7 +157,7 @@ def flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causa
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = entry(
             *(t.data_ptr() for t in (q, k, v, do, lse, dsum, dq, dk, dv)),
-            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)),
+            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)), window,
             1.0 / math.sqrt(d), stream,
         )
     if rc != 0:

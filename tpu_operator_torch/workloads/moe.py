@@ -1,5 +1,7 @@
 """Expert parallelism on PyTorch: a Switch-style MoE layer with all-to-all
-dispatch.  Port of ``tpu_operator/workloads/moe.py``.
+dispatch (port of ``tpu_operator/workloads/moe.py``), and the expert layer
+of the language-model training path (``workloads/lm.py``), which is told
+which experts this card holds.
 
 Experts shard one group per rank (one rank per card, ``_ranks``; NCCL on the
 cards, gloo on the CPU), tokens are routed top-1 (Switch Transformer, Fedus
@@ -12,6 +14,14 @@ one-hot dispatch tensor (capacity C per expert per shard), and tokens over
 capacity are dropped (their combine weight is zero).  The routing statistics
 (``aux_loss``, ``dropped_fraction``) are means over the ranks and are not
 differentiated; the layer's output is, through both all-to-alls.
+
+The language model's expert layer routes without capacity
+(``route_sigmoid_topk``: DeepSeek-V3's sigmoid top-k over every expert of
+the layer, no token dropped) and computes the part of the result that this
+card's contiguous range of experts gives (``held_experts``); the shared
+expert (``swiglu``) every card computes alike.  One float32 GEMM chain a
+held expert on cuBLAS, over the tokens routed to it; the per-expert counts
+are read on the host once a forward.
 """
 
 from __future__ import annotations
@@ -217,6 +227,57 @@ def acceptance(
     if n == 1:
         return _moe_rank(0, 1, device, **kwargs)
     return _ranks.run(_moe_rank, n, device.type, **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the language model's expert layer: dropless sigmoid top-k, a held share
+
+
+def route_sigmoid_topk(x: torch.Tensor, wr: torch.Tensor, top_k: int, normalize: bool = True,
+                       scale: float = 1.0) -> tuple:
+    """DeepSeek-V3's router (``DeepseekV3TopkRouter`` at ``n_group`` =
+    ``topk_group`` = 1) over every expert: scores s = sigmoid(x·wr) in
+    float32; the ``top_k`` largest of s + b choose, b the correction bias,
+    held at zero here; their weights are the chosen s, divided by their sum
+    + 1e-20 when ``normalize``, times ``scale``.  Returns (experts [N, k]
+    int64, weights [N, k] float32)."""
+    scores = torch.sigmoid(x.float() @ wr.float())
+    experts = torch.topk(scores, top_k, dim=-1).indices
+    weights = scores.gather(1, experts)
+    if normalize:
+        weights = weights / (weights.sum(-1, keepdim=True) + 1e-20)
+    return experts, weights * scale
+
+
+def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
+           w_down: torch.Tensor) -> torch.Tensor:
+    """(silu(x·Wg) ⊙ x·Wu)·Wd."""
+    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+
+
+def held_experts(x: torch.Tensor, experts: torch.Tensor, weights: torch.Tensor, first: int,
+                 w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor) -> tuple:
+    """Σ w_e · SwiGLU_e(x) over each token's chosen experts that this card
+    holds: experts ``first`` up to ``first + E`` of the layer, ``w_gate``,
+    ``w_up`` [E, d, f] and ``w_down`` [E, f, d].  Every (token, expert) pair
+    on a held expert is computed; none is dropped.
+
+    The pairs are sorted by held expert (the rest after them), the counts
+    read on the host once, and each expert runs one GEMM chain on its
+    tokens, gathered; the weighted results are added back at their tokens.
+    Returns (out [N, d], counts: the tokens of each held expert)."""
+    n_held = w_gate.shape[0]
+    local = experts - first
+    key = torch.where((local >= 0) & (local < n_held), local, n_held).flatten()
+    order = torch.argsort(key, stable=True)
+    counts = torch.bincount(key, minlength=n_held + 1).tolist()[:n_held]  # the host read
+    pairs = order[:sum(counts)]
+    tokens = pairs // experts.shape[1]
+    xs = x[tokens]
+    parts = [swiglu(xe, w_gate[e], w_up[e], w_down[e])
+             for e, xe in enumerate(torch.split(xs, counts))]
+    y = torch.cat(parts) * weights.flatten()[pairs, None]
+    return torch.zeros_like(x).index_add(0, tokens, y), counts
 
 
 def quick_check(device=None) -> dict:

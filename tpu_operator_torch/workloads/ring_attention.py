@@ -8,8 +8,10 @@ of Q/K/V, folds the K/V block it currently holds into its online-softmax
 state, then passes K/V one hop on (to rank + 1, from rank - 1).  After ``p``
 hops every Q block has seen the whole sequence while each rank held one
 block.  Causal masking works from global positions: at hop ``s`` the block
-held came from rank ``(r - s) mod p``.  On one card ``p = 1``: a single fold,
-no rotation.
+held came from rank ``(r - s) mod p``.  A sliding window (training path,
+causal) keeps only the keys fewer than ``window`` positions before each
+query; the kernels skip the tiles outside that band.  On one card ``p =
+1``: a single fold, no rotation.
 
 The fold is the hand-written kernel B3 (``kernels/flash_attention.py``) in
 the ``[B*H, T, D]`` layout, or the plain f32 path (``_plain_ring_forward``),
@@ -40,6 +42,7 @@ from tpu_operator_torch.kernels.flash_attention import (  # noqa: F401  (re-expo
     _q_tile,
     flash_block_update,
     online_softmax_block_update,
+    visible,
 )
 from tpu_operator_torch.kernels.flash_backward import flash_block_backward
 from tpu_operator_torch.obs import flight
@@ -75,14 +78,14 @@ def split_heads(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
     return x.reshape(b, h, t, d).permute(0, 2, 1, 3)
 
 
-def _hop_scores(q32, k, scale, causal, q_pos, src, block):
+def _hop_scores(q32, k, scale, causal, q_pos, src, block, window=0):
     """Scores of my Q block against the K block produced by rank ``src``,
-    causal-masked from global positions."""
+    causal-masked from global positions (and outside the sliding
+    ``window`` when one is given)."""
     scores = _block_scores(q32, k.float(), scale)  # [B, H, Tq, Tk]
     if causal:
         k_pos = src * block + torch.arange(block, device=q32.device)
-        mask = q_pos[:, None] >= k_pos[None, :]
-        scores = torch.where(mask, scores, NEG_INF)
+        scores = torch.where(visible(q_pos, k_pos, window), scores, NEG_INF)
     return scores
 
 
@@ -101,7 +104,7 @@ def _lse_of(m, l):
     return m + torch.log(torch.where(l > 0, l, 1.0))
 
 
-def _plain_ring_forward(q, k, v, causal: bool, group=None):
+def _plain_ring_forward(q, k, v, causal: bool, group=None, window: int = 0):
     """The plain ring forward: (out [B, T, H, D], lse [B, T, H]), all math
     in f32 on [B, T, H] state, as the reference's jnp path."""
     idx, p = _ring_group(group)
@@ -115,7 +118,7 @@ def _plain_ring_forward(q, k, v, causal: bool, group=None):
 
     def consume(s, m, l, o, k, v):
         src = (idx - s) % p
-        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block)
+        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block, window)
         blk_max = scores.amax(dim=-1).permute(0, 2, 1)  # [B, Tq, H]
         m_new = torch.maximum(m, blk_max)
         corr = torch.exp(m - m_new)
@@ -134,7 +137,7 @@ def _plain_ring_forward(q, k, v, causal: bool, group=None):
     return (o / denom[..., None]).to(q.dtype), _lse_of(m, l)
 
 
-def _kernel_ring_forward(q, k, v, causal: bool, group=None):
+def _kernel_ring_forward(q, k, v, causal: bool, group=None, window: int = 0):
     """The ring forward on kernel B3: (out [B, T, H, D], lse [B, T, H]), the
     layouts of ``_plain_ring_forward``."""
     idx, p = _ring_group(group)
@@ -147,7 +150,7 @@ def _kernel_ring_forward(q, k, v, causal: bool, group=None):
 
     def consume(s):
         src = (idx - s) % p
-        flash_block_update(qm, k, v, idx * block, src * block, m, l, o, causal)
+        flash_block_update(qm, k, v, idx * block, src * block, m, l, o, causal, window)
 
     for s in range(p - 1):
         consume(s)
@@ -183,7 +186,7 @@ def ring_attention_sharded(q, k, v, causal: bool, use_kernel: bool = False,
 # lands on the rank that owns the block.
 
 
-def _plain_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
+def _plain_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None, window: int = 0):
     """The plain remat backward (the reference's ``_remat_bwd``, :502-561):
     (dq, dk, dv) in q's layout and dtypes, all math in f32 on [B, T, H]."""
     idx, p = _ring_group(group)
@@ -201,7 +204,7 @@ def _plain_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
     def consume(s, dq, dk, dv, k, v):
         src = (idx - s) % p
         k32, v32 = k.float(), v.float()
-        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block)
+        scores = _hop_scores(q32, k, scale, causal, q_pos, src, block, window)
         # exact probabilities from the SAVED lse; a fully masked row whose
         # lse collapsed to NEG_INF is guarded like the forward
         prob = torch.where(scores <= NEG_INF * 0.5, 0.0, torch.exp(scores - lse_b))
@@ -221,7 +224,7 @@ def _plain_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _kernel_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
+def _kernel_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None, window: int = 0):
     """The remat backward on kernel B4 (the reference's
     ``_remat_bwd_pallas``, :686-737): the merged layout throughout, dq/dk/dv
     f32 accumulators that the kernel updates in place, the same rotation as
@@ -239,7 +242,7 @@ def _kernel_ring_backward(q, k, v, out, lse, dout, causal: bool, group=None):
     def consume(s, dk, dv, km, vm):
         src = (idx - s) % p
         flash_block_backward(qm, km, vm, dom, lsem, dsum, dq, dk, dv, idx * block, src * block,
-                             causal)
+                             causal, window)
 
     for s in range(p - 1):
         consume(s, dk, dv, km, vm)
@@ -258,26 +261,27 @@ class RingAttentionRemat(torch.autograd.Function):
     calls forward and backward in the same order."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, use_kernel, group):
+    def forward(ctx, q, k, v, causal, use_kernel, group, window):
         forward = _kernel_ring_forward if use_kernel else _plain_ring_forward
-        out, lse = forward(q, k, v, causal, group)
+        out, lse = forward(q, k, v, causal, group, window)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.use_kernel, ctx.group = causal, use_kernel, group
+        ctx.causal, ctx.use_kernel, ctx.group, ctx.window = causal, use_kernel, group, window
         return out
 
     @staticmethod
     def backward(ctx, dout):
         backward = _kernel_ring_backward if ctx.use_kernel else _plain_ring_backward
-        dq, dk, dv = backward(*ctx.saved_tensors, dout, ctx.causal, ctx.group)
-        return dq, dk, dv, None, None, None
+        dq, dk, dv = backward(*ctx.saved_tensors, dout, ctx.causal, ctx.group, ctx.window)
+        return dq, dk, dv, None, None, None, None
 
 
 def ring_attention_remat(q, k, v, causal: bool, use_kernel: bool = False,
-                         group=None) -> torch.Tensor:
+                         group=None, window: int = 0) -> torch.Tensor:
     """``ring_attention_sharded`` with the memory-efficient backward; the
     per-rank program on [B, T/p, H, D] blocks over ``group``.
-    ``use_kernel`` runs the forward on B3 and the backward on B4."""
-    return RingAttentionRemat.apply(q, k, v, causal, use_kernel, group)
+    ``use_kernel`` runs the forward on B3 and the backward on B4 (f32 for a
+    sliding ``window`` > 0, which needs ``causal``)."""
+    return RingAttentionRemat.apply(q, k, v, causal, use_kernel, group, int(window or 0))
 
 
 def remat_launches() -> dict:

@@ -20,10 +20,17 @@ masking not discounted), against the dense bf16 peak x cards, as the
 reference's is.  The step itself runs in f32 (the reference's weights are
 f32): f32 matmuls with TF32 off and the f32 kernels, so the figure compares
 with the reference's, not with what f32 can reach.
+
+``TRAIN_MODEL`` names a model of ``lm.MODELS`` to run in the probe's place
+(``lm.train_step``: its published widths, one card's share of each expert
+layer; on the CPU the same layers at tiny widths); the probe stays the
+default.  Its model FLOPs count the expert layers' pairs at their
+expectation and the attention pairs its masks keep.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Optional
 
@@ -33,7 +40,20 @@ import torch
 from tpu_operator_torch.k8s import nodeinfo
 from tpu_operator_torch.obs import flight
 from tpu_operator_torch.obs import profile as obs_profile
-from tpu_operator_torch.workloads import _ranks, collectives, resolve_device, ring_attention, timing
+from tpu_operator_torch.workloads import (
+    _ranks,
+    collectives,
+    lm,
+    resolve_device,
+    ring_attention,
+    timing,
+)
+
+MODEL_ENV = "TRAIN_MODEL"
+# a model's layers at widths the CPU runs in seconds
+CPU_WIDTHS = dict(hidden_size=64, num_attention_heads=8, num_key_value_heads=2, head_dim=16,
+                  sliding_window=8, num_experts=8, expert_parallel=2, num_experts_per_tok=4,
+                  moe_intermediate_size=32, intermediate_size=128, vocab_size=97)
 
 
 def step_model_flops(batch: int, seq: int, d_model: int, d_hidden: int) -> float:
@@ -44,33 +64,70 @@ def step_model_flops(batch: int, seq: int, d_model: int, d_hidden: int) -> float
     return 3.0 * (fwd_proj + fwd_mlp + fwd_attn)
 
 
+def lm_model_flops(cfg: lm.LMConfig, batch: int, seq: int) -> float:
+    """Model FLOPs of one train step of ``lm.train_step``: 3 x the forward;
+    the forward 2 a token per weight it goes through (the held experts'
+    pairs at their expectation) and 4·D a kept (query, key) pair and head."""
+    d, hd = cfg.d_model, cfg.head_dim
+    weights = d * cfg.vocab
+    pairs = 0
+    for layer in cfg.layers:
+        weights += 2 * d * cfg.heads * hd + 2 * d * cfg.kv_heads * hd
+        w = min(layer.window or seq, seq)
+        pairs += w * (w + 1) // 2 + (seq - w) * w
+        if layer.dense:
+            weights += 3 * d * cfg.dense_width
+        else:
+            weights += d * cfg.experts + 3 * d * cfg.shared_width
+            weights += 3 * d * cfg.expert_width * cfg.top_k * cfg.experts_held / cfg.experts
+    return 3.0 * (2.0 * batch * seq * weights + 4.0 * hd * cfg.heads * pairs * batch)
+
+
 def _train_rank(
     rank: int, n: int, device: torch.device, batch_per_dp: int, seq_per_mp: int,
     d_model: int, d_hidden: int, heads: int, steps: int, best_of: int,
-    use_kernel: bool,
+    use_kernel: bool, model: Optional[dict] = None,
 ) -> dict:
     # f32 products in full f32, not TF32 (the reference's f32 step)
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = collectives.make_mesh(n, rank, device)
     b, s = batch_per_dp * mesh.dp, seq_per_mp * mesh.mp
-    # every rank draws the same full weights and batch from the seeds and
-    # keeps its shard (the reference's params seed 0, batch key 2)
-    params = collectives.transformer_params_from_jax(
-        collectives.transformer_weights(d_model, d_hidden, seed=0), mesh)
     i, j = mesh.coords
-    x = np.random.default_rng(2).standard_normal((b, s, d_model), dtype=np.float32)
-    xs = torch.tensor(x[i * batch_per_dp:(i + 1) * batch_per_dp,
-                        j * seq_per_mp:(j + 1) * seq_per_mp], dtype=torch.bfloat16, device=device)
-    del x
+    if model is not None:
+        # every rank draws the same weights and ids from seed 0 and keeps its
+        # rows, its sequence shard and the next shard's first token
+        cfg = lm.LMConfig.from_dict(model)
+        d_model, d_hidden, heads = cfg.d_model, cfg.dense_width, cfg.heads
+        params = lm.init_params(cfg, 0, device)
+        gen = torch.Generator(device=device).manual_seed(2)
+        ids = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen, device=device)
+        ids = ids[i * batch_per_dp:(i + 1) * batch_per_dp,
+                  j * seq_per_mp:(j + 1) * seq_per_mp + 1].contiguous()
+        xs = ids
+
+        def one(params):
+            return lm.train_step(mesh, cfg, params, ids, lr=0.05, use_kernel=use_kernel)
+    else:
+        # every rank draws the same full weights and batch from the seeds and
+        # keeps its shard (the reference's params seed 0, batch key 2)
+        params = collectives.transformer_params_from_jax(
+            collectives.transformer_weights(d_model, d_hidden, seed=0), mesh)
+        x = np.random.default_rng(2).standard_normal((b, s, d_model), dtype=np.float32)
+        xs = torch.tensor(x[i * batch_per_dp:(i + 1) * batch_per_dp,
+                            j * seq_per_mp:(j + 1) * seq_per_mp], dtype=torch.bfloat16,
+                          device=device)
+        del x
+
+        def one(params):
+            return collectives.transformer_step(mesh, heads, params, xs, use_kernel=use_kernel)
 
     def run(params):
         for _ in range(steps):
-            loss, params = collectives.transformer_step(mesh, heads, params, xs,
-                                                        use_kernel=use_kernel)
+            loss, params = one(params)
         return loss, params
 
     def null() -> float:
-        return float(xs[0, 0].float().sum())
+        return float(xs[0, :1].float().sum())
 
     null()
     overhead = min(timing.timed(null, device) for _ in range(3))
@@ -96,12 +153,14 @@ def _train_rank(
     step_s = times[0]
     step_s_median = times[len(times) // 2]
 
-    flops = step_model_flops(b, s, d_model, d_hidden)
+    flops = (lm_model_flops(cfg, b, s) if model is not None
+             else step_model_flops(b, s, d_model, d_hidden))
     tflops = flops / step_s / 1e12
     generation = nodeinfo.detect_generation(device)
     peak = nodeinfo.generation_info(generation).peak_bf16_tflops * n
     result = {
         "ok": bool(np.isfinite(loss0)),
+        "model": "transformer-layer" if model is None else model.get("name", "lm"),
         "devices": n,
         "mesh": mesh.shape,
         "batch": b,
@@ -150,19 +209,22 @@ def train_benchmark(
     world_size: Optional[int] = None,
     use_kernel: Optional[bool] = None,
     device=None,
+    model: Optional[dict] = None,
 ) -> dict:
     """Measure sustained train-step throughput on every local card (one rank
     each; ``world_size`` ranks on the CPU).  Returns tokens/sec, step time,
     model TFLOP/s and, when the card's peak is known, training MFU.
     ``use_kernel`` defaults to the kernels on a card and the plain path on
-    the CPU."""
+    the CPU.  ``model``: a configuration of ``lm.LMConfig.from_dict``, run
+    with ``lm.train_step`` in the layer's place (``d_model``, ``d_hidden``
+    and ``heads`` then come from it)."""
     device = resolve_device(device)
     n = world_size or collectives.local_world_size(device)
     if use_kernel is None:
         use_kernel = device.type == "cuda"
     kwargs = dict(batch_per_dp=batch_per_dp, seq_per_mp=seq_per_mp, d_model=d_model,
                   d_hidden=d_hidden, heads=heads, steps=steps, best_of=best_of,
-                  use_kernel=use_kernel)
+                  use_kernel=use_kernel, model=model)
     if n == 1:
         return _train_rank(0, 1, device, **kwargs)
     return _ranks.run(_train_rank, n, device.type, **kwargs)
@@ -170,8 +232,18 @@ def train_benchmark(
 
 def quick_check(device=None) -> dict:
     """The validator's probe: the reference's TPU shapes on a card; its tiny
-    shapes on the CPU (full train steps would crawl there)."""
+    shapes on the CPU (full train steps would crawl there).  With
+    ``TRAIN_MODEL`` set, that model of ``lm.MODELS``: one sequence of 4096
+    tokens a card at its published widths, or 2 of 32 at ``CPU_WIDTHS``."""
     device = resolve_device(device)
+    name = os.environ.get(MODEL_ENV, "")
+    if name:
+        model = dict(lm.MODELS[name], name=name)
+        if device.type == "cuda":
+            return train_benchmark(batch_per_dp=1, seq_per_mp=4096, steps=2, best_of=2,
+                                   device=device, model=model)
+        return train_benchmark(batch_per_dp=2, seq_per_mp=32, steps=2, best_of=2, device=device,
+                               model=dict(model, **CPU_WIDTHS))
     if device.type == "cuda":
         return train_benchmark(device=device)
     return train_benchmark(
