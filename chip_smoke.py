@@ -362,10 +362,10 @@ def build_phase() -> None:
         dtype = "bf16" if "nv_bfloat16" in line else "f32"
         usage = " | ".join(x.strip() for x in lines[i + 2:i + 4])
         smem = lib.tpu_flash_train_smem_bytes(names[kernel], dp, int(dtype == "bf16"))
-        # B4 f32's kernels: ptxas counts the launch's 384 threads; setmaxnreg
+        # the f32 kernels: ptxas counts the launch's 384 threads; setmaxnreg
         # then gives the two product warpgroups 232 and the producer 40
-        split = " (setmaxnreg: 232 a product thread, 40 a producer thread)" if (
-            dtype == "f32" and not kernel.startswith("fold")) else ""
+        split = (" (setmaxnreg: 232 a product thread, 40 a producer thread)"
+                 if dtype == "f32" else "")
         print(f"build: {kernel} {dtype} D {dp}: {usage}{split} | {smem} bytes of shared memory",
               flush=True)
         require(not split or "0 bytes spill stores, 0 bytes spill loads" in usage,
@@ -522,9 +522,13 @@ def training_phase(n_cards: int) -> tuple:
     from tpu_operator_torch.kernels import flash_backward as fb
 
     fa.block_update_f32_launches = 0
+    fa.block_update_f32_path_launches.update(dict.fromkeys(fa.block_update_f32_path_launches, 0))
     fb.backward_launches = 0
-    by, (forward, backward) = run_checks(
-        TRAIN_CHECKS, n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches))
+    by, (forward, backward, paths) = run_checks(
+        TRAIN_CHECKS, n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches,
+                                        dict(fa.block_update_f32_path_launches)))
+    # every f32 fold of this process went through the wgmma body
+    require(paths == {"wgmma": forward}, f"B3 f32's launches by body {paths}, of {forward}")
     tr, train, pp = by["transformer"], by["train"], by["transformer-pp"]
     if n_cards > 1:
         # the checks ran in one process per card: rank 0 counted its own
@@ -2540,9 +2544,10 @@ def train_kernel_phase() -> dict:
         ("ragged (2, 300 x 420, 128) causal, Tq and Tk off 64", 2, 300, 420, 128, 120, 0, True),
         ("fully masked (4, 136 x 200, 16)", 4, 136, 200, 16, 0, 200, True),
     ]
-    # the long-context stage's diagonal hop at 4 of its heads, for B4 f32
-    # alone: a dk/dv block walks 1,024 query tiles there, 16 times the train
-    # hop's, so its sums are the longest any cell asks of it
+    # the long-context stage's diagonal hop at 4 of its heads: a dk/dv block
+    # walks 1,024 query tiles there, 16 times the train hop's, and the
+    # fold's last q tile 1,024 key tiles, so their sums are the longest any
+    # cell asks of them
     lt, ld = LONG_HOP[1:]
     long_cases = [(f"long hop (4, {lt}, {ld}) causal", 4, lt, lt, ld, 0, 0, True)]
     twice = 0  # cases launched twice on the same inputs, bit-identical
@@ -2583,7 +2588,7 @@ def train_kernel_phase() -> dict:
         return (torch.full((bh_, tq), fa.NEG_INF, device="cuda"),
                 torch.zeros((bh_, tq), device="cuda"), torch.zeros((bh_, tq, dd), device="cuda"))
 
-    for label, bh_, tq, tk, dd, q_off, k_off, causal in cases:
+    for label, bh_, tq, tk, dd, q_off, k_off, causal in cases + long_cases:
         q, k, v, k0, v0 = (torch.randn((bh_, n, dd), generator=gen, device="cuda")
                            for n in (tq, tk, tk, tk, tk))
         # the diagonal hops from a fresh state, as the ring's first hop; the
@@ -3054,8 +3059,8 @@ def _f32_bounds(flops: float, nbytes: float, mem: float, tf32: float, f32: float
 
 def train_timing_phase(name: str) -> dict:
     """B4 (f32 and bf16) and B3's f32 entry at the train hop, B4 f32 at the
-    fully visible hop and at the long-context hop as well, their plain
-    versions and the library calls."""
+    fully visible hop, both f32 kernels at the long-context hop and at the
+    windowed hop as well, their plain versions and the library calls."""
     import torch
     import torch.nn.functional as F
 
@@ -3104,6 +3109,19 @@ def train_timing_phase(name: str) -> dict:
     fa.flash_block_update(q, k, v, 0, 0, m, l, o, True)
     lse = m + torch.log(l)
     dsum = (do * (o / l[..., None])).sum(-1)
+    # B3 f32 at the same hop, folding into the same state again, which costs
+    # the same
+    flops = 4.0 * ld * (lb * lt * (lt + 1) // 2)
+    nbytes = 3 * lb * lt * ld * 4 + 2 * (2 * lb * lt * 4 + lb * lt * ld * 4)
+    rows["update_f32_long"] = {
+        "shape": [lb, lt, ld], "dtype": "float32", "causal": True,
+        "ms": time_ms(lambda: fa.flash_block_update(q, k, v, 0, 0, m, l, o, True), reps=3, per=2),
+        "plain_ms": None, "library_ms": None,
+        "library_note": ("no single PyTorch call folds a block into (m, l, o); the plain version "
+                         "is checked at 4 of these heads (train_kernel_phase), not timed"),
+        **_f32_bounds(flops, nbytes, mem, tf32_peak, f32_peak),
+        "bound_one_pass_ms": _bound(flops, nbytes, (mem, tf32_peak))["bound_ms"],
+    }
     del m, l, o
     dq, dk, dv = (torch.zeros_like(q) for _ in range(3))
     flops = 10.0 * ld * (lb * lt * (lt + 1) // 2)

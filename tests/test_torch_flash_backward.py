@@ -149,6 +149,47 @@ def test_b4_kernels_keep_the_names_the_benchmark_reads(kernel):
     assert others and not any(re.search(p, f"{kernel}<float, 128>") for p in others)
 
 
+def _source_code() -> str:
+    """flash_backward.cu without its comments."""
+    with open(_SOURCE) as f:
+        source = f.read()
+    return re.sub(r"//[^\n]*", "", source)
+
+
+@pytest.mark.parametrize("kernel, band", [("fold_f32_kernel", False), ("fold_band_kernel", True)])
+def test_b3_kernels_keep_the_names_the_benchmark_reads(kernel, band):
+    """The benchmark finds B3 f32 in a device trace by the fold's kernel
+    names: ``benchmark/readings.B3_F32`` the causal one alone,
+    ``readings_lm.B3_F32`` both.  Each is a ``__global__`` template on DP,
+    launched once a hop."""
+    readings = pytest.importorskip("benchmark.readings")
+    readings_lm = pytest.importorskip("benchmark.readings_lm")
+    code = _source_code()
+    assert re.search(r"template <int DP>\s*__global__ void\s+__launch_bounds__\([^)]*\)\s+"
+                     + kernel + r"\(", code), f"no __global__ template {kernel}<DP>"
+    assert len(re.findall(r"\b" + kernel + r"<DP><<<", code)) == 1
+    for dp in (64, 128):
+        name = f"void (anonymous namespace)::{kernel}<{dp}>(Maps, FoldParams)"
+        assert re.search(readings_lm.B3_F32, name)
+        assert bool(re.search(readings.B3_F32, name)) is not band
+
+
+def test_the_fold_runs_on_wgmma_fed_by_tma():
+    """B3 f32's body, from the fold's section to the launches, issues its
+    products on ``wgmma`` (S = Q K^T through ``rows_issue``, o += e V through
+    ``pv_issue``) from tiles TMA lands, and nothing of the ``mma.sync``
+    fold it replaced: no ``cp.async`` and no warp-level product."""
+    code = _source_code()
+    start = code.index("struct Fold {")
+    body = code[start:code.index("int set_smem(", start)]
+    assert "rows_issue<DP>(" in body and "pv_issue<DP>(" in body
+    assert "wgmma_n128(" in body and "wgmma_n64(" in body and "wgmma_commit()" in body
+    assert "load_tile<DP, kWalkRows>(" in body and "setmaxnreg" in body
+    assert not re.search(r"cp_async|mma_all|rows_dot|acc_dot|mma\.sync", body)
+    # the warp-level f32 product is gone: mma.sync remains for bf16 B4 alone
+    assert "m16n8k8" not in code and "Mma<float>" not in code
+
+
 def _fold_state(rng, bh, t, d):
     """A carried (m, l, o) state in f32: one earlier, fully visible block
     folded in by the reference."""

@@ -657,6 +657,9 @@ FOLD_CASES = [
     (3, 200, 200, 40, 0, 0, True, False),
     (3, 200, 264, 72, 64, 0, True, True),
     (2, 300, 420, 128, 120, 0, True, True),
+    (3, 100, 300, 40, 300, 0, True, True),  # T no multiple of 32, q_off past its keys
+    (3, 200, 264, 72, 0, 0, False, True),
+    (2, 1000, 777, 128, 0, 0, False, False),
     (4, 136, 200, 16, 0, 200, True, True),  # fully masked
 ]
 
@@ -672,9 +675,11 @@ def test_flash_block_update_f32_kernel_matches_plain(cuda, bh, tq, tk, d, q_off,
         state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *state, False)
     m, l, o = (x.clone() for x in state)
     before = (fa.block_update_launches, fa.block_update_f32_launches)
+    paths = dict(fa.block_update_f32_path_launches)
     fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, causal)
     torch.cuda.synchronize()
     assert (fa.block_update_launches, fa.block_update_f32_launches) == (before[0], before[1] + 1)
+    assert fa.block_update_f32_path_launches == {**paths, "wgmma": paths["wgmma"] + 1}
     if causal and k_off > q_off + tq:
         assert all(torch.equal(a, b) for a, b in zip((m, l, o), state))
         return

@@ -10,7 +10,7 @@
 //       `flash_block_update`, ring_attention.py:118-218) on f32 q, k, v:
 //       the remat forward of the transformer step, whose weights, and so
 //       q, k, v, are f32 (the bf16 entry is in flash_attention.cu), on
-//       `mma.sync`.
+//       `wgmma` fed by TMA.
 //
 // Numerics are the reference's.  Scores s = dot_f32(q, k) * scale, masked
 // scores are out (causal on global positions q_off + row >= k_off + col;
@@ -40,8 +40,9 @@
 // dk and dv, whose causal rows at T 32768 sum 32768 terms that shrink
 // along the walk, land 2e-4 of max |plain| off when one accumulator takes
 // the whole walk.  B4 f32 adds its accumulators into dq/dk/dv every 32
-// walked tiles (`flush`), which bounds the drift at any T; B3's fold keeps
-// one accumulator for its whole walk.
+// walked tiles (`flush`), which bounds the drift at any T.  B3's fold keeps
+// one accumulator for its whole walk: its o / l is a weighted mean, and at
+// T 32768 it lands 4e-6 of max |plain| off (`chip_smoke.py`'s long hop).
 //
 // Bound, on an H100 SXM (494.5 TFLOP/s TF32 dense, 3 passes: 164.8 TFLOP/s
 // of f32 work; 3.35 TB/s): the train hop (BH 128, T 2048, D 128, causal,
@@ -124,27 +125,18 @@
 // tensor cores wait, the rest in hand-offs; the ~550 KB of shared memory a
 // step moves bound it next.
 //
-// bf16 (`dkdv_mma`, `dq_mma`), and B3's f32 fold on the same machinery: one
-// block per (bh, 128-row fixed tile), eight warps each owning 16 rows and
-// keeping their accumulators in registers for the whole walk; the walked
-// tiles stream through a two-stage cp.async ring (32 rows, or 64 keys in
-// the fold) with zero fill past T and past D; rows are stored in 16-byte
-// chunks XOR-swizzled by row (chunk ^ row % 8, rows of at least 128 bytes),
-// so every fragment load is free of bank conflicts.  The dk/dv kernel
-// computes S^T = K Q^T and dP^T = V dO^T with keys as M, so P^T and dS^T are
-// already the A operand of dV += P^T dO and dK += dS^T Q; the dq kernel
-// keeps dS as the A operand of dQ += dS K; the fold keeps e as the A operand
-// of O += e V.  The fold splits its f32 operands as it loads them, and
-// runs each pass over a group of output tiles before the next (mma_all), so
-// no product waits on the one just issued into the same accumulator.  An
-// m16n8 accumulator is not a tf32 m16n8k8 A fragment: lane (g, t) holds
-// columns 2t and 2t+1, the fragment wants t and t + 4.  The fold takes the
-// columns in that order instead: k index t is column 2t and t + 4 is 2t + 1,
-// and the B operand reads its rows in the same order, so the accumulator is
-// the fragment as it stands.  In bf16 two adjacent accumulators are the
-// m16n8k16 fragment (FA2's reuse).  D is padded to 16, 32, 64 or 128, and a
-// warp whose rows see none of a tile's keys skips it, which changes nothing
-// (P = 0 and e = 0 there).
+// bf16 (`dkdv_mma`, `dq_mma`): one block per (bh, 128-row fixed tile),
+// eight warps each owning 16 rows and keeping their accumulators in
+// registers for the whole walk; the walked tiles (32 rows) stream through a
+// two-stage cp.async ring with zero fill past T and past D; rows are stored
+// in 16-byte chunks XOR-swizzled by row (chunk ^ row % 8, rows of at least
+// 128 bytes), so every fragment load is free of bank conflicts.  The dk/dv
+// kernel computes S^T = K Q^T and dP^T = V dO^T with keys as M, so P^T and
+// dS^T are already the A operand of dV += P^T dO and dK += dS^T Q; the dq
+// kernel keeps dS as the A operand of dQ += dS K, two adjacent accumulators
+// being the m16n8k16 fragment (FA2's reuse).  D is padded to 16, 32, 64 or
+// 128, and a warp whose rows see none of a tile's keys skips it, which
+// changes nothing (P = 0 there).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -161,7 +153,6 @@ constexpr int kThreads = kWarps * 32;
 constexpr int kRows = kWarps * 16;  // rows of a block's fixed tile
 constexpr int kStages = 2;
 constexpr int kBwdStep = 32;   // rows of a walked tile in the backward kernels
-constexpr int kFoldStep = 64;  // keys of a walked tile in the fold
 // the window of a causal hop with no band: larger than any distance between
 // a query and a key (tiles' offsets are clamped to kFar), so that 0 <=
 // query - key < kNoWindow is the causal test alone
@@ -274,14 +265,6 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
@@ -295,73 +278,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
-// Fragments of lane (g, t) = (lane / 4, lane % 4), per storage type:
+// Fragments of lane (g, t) = (lane / 4, lane % 4), per storage type (bf16
+// alone now; the f32 kernels run on wgmma):
 //   load_a<L>(s, r0, k0):   A[m][k] = s[r0 + m][k0 + k]
 //   load_b_nk<L>(s, n0, k0): B[k][n] = s[n0 + n][k0 + k]
-//   load_b_kn<L>(s, k0, n0): B[k][n] = s[k0 + k][n0 + n], k in a_acc's
-//       order; f32 splits B as it is loaded
+//   load_b_kn<L>(s, k0, n0): B[k][n] = s[k0 + k][n0 + n]
 //   a_acc(c, j): the A operand of the j-th K step whose columns are the
 //       accumulators c[...] of 8 columns each
-//   mma_all<G>(c, a, b): c[j] += a b[j] for G tiles, in f32 each of the
-//       three passes over all G before the next
+//   mma_all<G>(c, a, b): c[j] += a b[j] for G tiles
 template <typename T>
 struct Mma;
-
-// f32 storage: 3xTF32 on m16n8k8.  k index t of a step is column 2t and
-// t + 4 is column 2t + 1 in a_acc and load_b_kn (module comment).
-template <>
-struct Mma<float> {
-  static constexpr int kK = 8;
-  struct A {
-    uint32_t hi[4], lo[4];
-  };
-  struct B {
-    uint32_t hi[2], lo[2];
-  };
-  __device__ __forceinline__ static A a(float x0, float x1, float x2, float x3) {
-    A f;
-    split(x0, f.hi[0], f.lo[0]);
-    split(x1, f.hi[1], f.lo[1]);
-    split(x2, f.hi[2], f.lo[2]);
-    split(x3, f.hi[3], f.lo[3]);
-    return f;
-  }
-  template <class L>
-  __device__ __forceinline__ static A load_a(const float* s, int r0, int k0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    return a(s[L::at(r0 + g, k0 + t)], s[L::at(r0 + g + 8, k0 + t)],
-             s[L::at(r0 + g, k0 + t + 4)], s[L::at(r0 + g + 8, k0 + t + 4)]);
-  }
-  __device__ __forceinline__ static B b(float x0, float x1) {
-    B f;
-    split(x0, f.hi[0], f.lo[0]);
-    split(x1, f.hi[1], f.lo[1]);
-    return f;
-  }
-  template <class L>
-  __device__ __forceinline__ static B load_b_nk(const float* s, int n0, int k0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    return b(s[L::at(n0 + g, k0 + t)], s[L::at(n0 + g, k0 + t + 4)]);
-  }
-  template <class L>
-  __device__ __forceinline__ static B load_b_kn(const float* s, int k0, int n0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    return b(s[L::at(k0 + 2 * t, n0 + g)], s[L::at(k0 + 2 * t + 1, n0 + g)]);
-  }
-  template <int N>
-  __device__ __forceinline__ static A a_acc(const float (&c)[N][4], int j) {
-    return a(c[j][0], c[j][2], c[j][1], c[j][3]);
-  }
-  template <int G>
-  __device__ __forceinline__ static void mma_all(float (*c)[4], const A& x, const B (&y)[G]) {
-#pragma unroll
-    for (int j = 0; j < G; ++j) mma_tf32(c[j], x.lo, y[j].hi[0], y[j].hi[1]);
-#pragma unroll
-    for (int j = 0; j < G; ++j) mma_tf32(c[j], x.hi, y[j].lo[0], y[j].lo[1]);
-#pragma unroll
-    for (int j = 0; j < G; ++j) mma_tf32(c[j], x.hi, y[j].hi[0], y[j].hi[1]);
-  }
-};
 
 // bf16 storage: m16n8k16; a_acc rounds P and dS to bf16, as the reference.
 template <>
@@ -811,6 +737,31 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32], const uint32_t (&a)[4]
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d[64 x 128] += A[64 x 8] B[8 x 128]: A tf32 in registers, B K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
+      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
 // Fragments of thread (w, g, t) = (warp of the warpgroup, lane / 4, lane % 4)
 // in the tf32 A layout: a0 (16w + g, t), a1 (+8, t), a2 (g, t + 4), a3 (+8,
 // t + 4).  The accumulators hold (16w + g (+8), 8j + 2t (+1)) at 4j + i.
@@ -885,10 +836,11 @@ __device__ __forceinline__ void split_walked(unsigned char* stage, unsigned char
 // walked tile's parts at w_hi and w_lo (B).  Each k step is three wgmma:
 // lo hi, hi lo, then hi hi; two of them read A from registers, which keeps
 // the product's shared-memory traffic under the bandwidth.  Addresses are
-// in the shared space.
+// in the shared space.  rows_issue commits the product as one group and
+// returns while it runs; rows_product waits for it.
 template <int DP>
-__device__ __forceinline__ void rows_product(float (&c)[16], const uint32_t (&x_hi)[DP / 8][4],
-                                             uint32_t x_lo, uint32_t w_hi, uint32_t w_lo) {
+__device__ __forceinline__ void rows_issue(float (&c)[16], const uint32_t (&x_hi)[DP / 8][4],
+                                           uint32_t x_lo, uint32_t w_hi, uint32_t w_lo) {
   const uint64_t a = desc_sw128(x_lo, 16);
   const uint64_t b_hi = desc_sw128(w_hi, 16);
   const uint64_t b_lo = desc_sw128(w_lo, 16);
@@ -906,6 +858,12 @@ __device__ __forceinline__ void rows_product(float (&c)[16], const uint32_t (&x_
     wgmma_n32(c, x_hi[kk], b_hi + b_at);
   }
   wgmma_commit();
+}
+
+template <int DP>
+__device__ __forceinline__ void rows_product(float (&c)[16], const uint32_t (&x_hi)[DP / 8][4],
+                                             uint32_t x_lo, uint32_t w_hi, uint32_t w_lo) {
+  rows_issue<DP>(c, x_hi, x_lo, w_hi, w_lo);
   wgmma_wait0();
   fence_regs(c);
 }
@@ -1417,182 +1375,441 @@ __global__ void __launch_bounds__(kConsumers + 128, 1)
 }
 
 // ---------------------------------------------------------------------------
-// kernel B3 on f32 storage
+// kernel B3 on f32: wgmma fed by TMA
+//
+// Replaces `_flash_block_kernel` (tpu_operator/workloads/ring_attention.py:
+// 118-218) on f32 q, k, v.  Bound by its operations: 4 D FLOP per kept pair
+// in three TF32 passes, 0.834 ms at the train hop (128, 2048, 128) and 53.4
+// ms at the long-context hop (32, 32768, 128), against 0.2 ms and 0.8 ms for
+// its bytes.
+//
+// Design (`fold_f32`): one block per (bh, 128-row q tile), three
+// warpgroups.  A producer (setmaxnreg 40) loads the tile's rows of Q once
+// and every walked tile of 32 keys of K and V by TMA, splits K once for
+// both consumers (hi in place, lo beside) and writes V's hi and lo parts
+// transposed (`transpose_v`): tf32 wgmma reads B only K-major, so o += e V
+// needs V with its keys contiguous, and the producer puts them in the order
+// in which S's accumulator is the A fragment of e, so e never leaves the
+// registers.  Two consumers (setmaxnreg 232) each own 64 rows: S = Q K^T as
+// m64n32k8 with Q's hi parts in registers and its lo parts in place (B4's
+// `rows_issue`), the online softmax in registers, o += e V as m64nDk8 with e
+// in registers; each issues S_i and the tile before's e V together and runs
+// the softmax of S_i while that e V does.  K and V^T have rings of two stages
+// each, released apart: K once S is done, V^T once e V is.
+// Shared memory at D 128: Q 64 KB, the K ring 64 KB, the V^T ring 64 KB, V
+// as landed 32 KB, barriers: 230,504 bytes of 232,448 (D 64: half).  Walked
+// tiles of 64 keys in two stages would need 352 KB.  Registers: a consumer
+// thread holds o (64 at D 128), Q's hi parts (64), a score tile (16) and
+// e's A fragments (32), under its 232, with no spills.
+// The consumers are not made to take turns on the tensor cores: a turn
+// barrier around each one's products (FA3's ping-pong) changed nothing at
+// the train hop and cost 2 % at the long hop and 16 % at the windowed one.
+// Measured on an H100 SXM at 700 W: the train hop 1.51 ms (the `mma.sync`
+// fold it replaced: 3.02 in the same call), 0.55 of its bound; the long hop
+// 85.0 ms (172.1), 0.63; the windowed hop (256, 4096, 128), W 128, 1.71 ms
+// (2.57).  A consumer's step of the heaviest block (clock64 stamps) takes
+// ~4,400 cycles: ~2,000-2,600 issuing S and e V and waiting for S, ~1,400-
+// 1,800 in the softmax while e V runs, ~300 waiting for the producer, ~200
+// waiting for e V and splitting e.  The producer is busy ~4,300 cycles a
+// tile (K's split ~1,800, V's transpose ~2,400): the two sides are matched,
+// and a faster fold needs both less split work a key and larger S products.
 
+// Shared memory of the fold, in bytes from a 1024-aligned base: the two
+// consumers' fixed tiles of 64 query rows (Q as TMA landed it, then its lo
+// parts in place); two stages of the walked K tile (hi parts in place, lo
+// parts beside); two of V^T's parts, DP rows of 32 keys each (`transpose_v`);
+// two of V as TMA landed it; the barriers.
 template <int DP>
-constexpr int fold_smem() {
-  return Smem<float, DP>::bytes(kRows) + kStages * 2 * Smem<float, DP>::bytes(kFoldStep);
+struct Fold {
+  static constexpr int kQBytes = Wg<DP>::kFixedBytes;  // one consumer's rows
+  static constexpr int kTile = Wg<DP>::kWalkBytes;     // 32 rows of DP, or DP rows of 32
+  static constexpr int kQ = 0;                         // [consumer]
+  static constexpr int kK = 2 * kQBytes;               // [stage][hi, lo]
+  static constexpr int kVt = kK + 4 * kTile;           // [stage][hi, lo]
+  static constexpr int kV = kVt + 4 * kTile;           // [stage]
+  static constexpr int kBars = kV + 2 * kTile;
+  // fixed, then [stage] each of: K landed, V landed, K split, V^T split, K
+  // done with, V^T done with; + slack to align the base
+  static constexpr int kSmem = kBars + 13 * 8 + 1024;
+};
+
+// the fold's barriers, offsets from Fold::kBars, [stage st]
+constexpr uint32_t kFixedBar = 0;
+__device__ __forceinline__ uint32_t k_full(int st) { return 8 + 8 * st; }
+__device__ __forceinline__ uint32_t v_full(int st) { return 24 + 8 * st; }
+__device__ __forceinline__ uint32_t k_ready(int st) { return 40 + 8 * st; }
+__device__ __forceinline__ uint32_t v_ready(int st) { return 56 + 8 * st; }
+__device__ __forceinline__ uint32_t k_empty(int st) { return 72 + 8 * st; }
+__device__ __forceinline__ uint32_t v_empty(int st) { return 88 + 8 * st; }
+
+// V's landed tile (32 keys of DP columns in TMA's boxes) as the B operand of
+// O += e V: V^T, DP rows of 32 keys, K-major with the 128-byte swizzle, hi
+// and lo parts.  tf32 wgmma reads B only K-major, and e is the A operand
+// straight from S's accumulator, whose thread (g, t) holds keys 2t and 2t +
+// 1 of each 8 where the A fragment wants k indices t and t + 4: so key 8j +
+// 2a + b sits at position 8j + a + 4b of its row, and the accumulator is
+// the fragment as it stands.  Thread pt reads the 16-byte chunks of key pt %
+// 32 and writes each element to its own row: a warp's 8-lane phases read 8
+// distinct chunks, and its 32 lanes write the 32 banks of one row.
+template <int DP>
+__device__ __forceinline__ void transpose_v(const unsigned char* v, unsigned char* hi,
+                                            unsigned char* lo, int pt) {
+  const int key = pt % 32;
+  const int at = (key & ~7) | ((key & 7) >> 1) | ((key & 1) << 2);
+#pragma unroll 2
+  for (int c4 = pt / 32; c4 < DP / 4; c4 += 4) {
+    const float4 x = *reinterpret_cast<const float4*>(v + sw(kWalkRows, key, 4 * c4));
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const uint32_t to = sw(DP, 4 * c4 + e, at);
+      uint32_t h, l;
+      split(xs[e], h, l);
+      *reinterpret_cast<uint32_t*>(hi + to) = h;
+      *reinterpret_cast<uint32_t*>(lo + to) = l;
+    }
+  }
 }
 
-// One block per (bh, 128-row q tile) folds every 64-key tile it sees into
-// the (m, l, o) state of its rows, held in registers, and writes the state
-// back once.  A tile past the causal diagonal, or before the band of a
-// sliding window, is skipped: its update is an exact no-op.
-template <int DP, bool kBand>
-__device__ __forceinline__ void fold_f32(const FoldParams& p, unsigned char* smem) {
-  using L = Smem<float, DP>;
-  constexpr int kFixed = kRows * L::kRowElems;
-  constexpr int kStep = kFoldStep * L::kRowElems;
-  constexpr int kN = kFoldStep / 8;
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + kFixed;          // [stage][kFoldStep rows]
-  float* vs = ks + kStages * kStep;  // [stage][kFoldStep rows]
+// The walked K tile split once for both consumers: hi parts in place, lo
+// parts at the same offsets in `lo`.
+template <int DP>
+__device__ __forceinline__ void split_k(unsigned char* k, unsigned char* lo, int pt) {
+  constexpr int kChunks = Fold<DP>::kTile / 16;
+  static_assert(kChunks % 128 == 0, "whole chunks a thread");
+#pragma unroll 2
+  for (int n = 0; n < kChunks / 128; ++n) {
+    const int i = pt + n * 128;
+    const float4 x = reinterpret_cast<const float4*>(k)[i];
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    reinterpret_cast<uint4*>(k)[i] = h;
+    reinterpret_cast<uint4*>(lo)[i] = l;
+  }
+}
 
+// The producer warpgroup of the fold (threads kConsumers on).  Its elected
+// thread loads the two consumers' query rows (q0 on, head bh) and walked
+// tile 0 by TMA.  Then, for walked tile i (keys 32 (first + i) on), all 128
+// threads split K once it lands and mark it ready; the elected thread loads
+// tile i + 1 once the consumers are done with tile i - 1's K; all transpose
+// and split V once it lands and the consumers are done with tile i - 2's
+// V^T, and mark V^T ready.  A consumer folds tile i's e V while it scores
+// tile i + 1, so K is wanted a tile before V^T.  The producer gives up its
+// registers to the consumers.
+template <int DP>
+__device__ __forceinline__ void fold_produce(unsigned char* s, uint32_t s32, const Maps& maps,
+                                             int q0, int first, int n, int bh) {
+  using L = Fold<DP>;
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+  const int pt = threadIdx.x - kConsumers;
+  const uint32_t bars = s32 + L::kBars;
+  auto load = [&](int i) {
+    const int st = i & 1;
+    const int row0 = (first + i) * kWalkRows;
+    mbar_expect_tx(bars + k_full(st), L::kTile);
+    load_tile<DP, kWalkRows>(s32 + L::kK + st * 2 * L::kTile, &maps.k, bars + k_full(st), row0,
+                             bh);
+    mbar_expect_tx(bars + v_full(st), L::kTile);
+    load_tile<DP, kWalkRows>(s32 + L::kV + st * L::kTile, &maps.v, bars + v_full(st), row0, bh);
+  };
+  if (pt == 0) {
+    mbar_expect_tx(bars + kFixedBar, 2 * L::kQBytes);
+    load_tile<DP, kFixedRows>(s32 + L::kQ, &maps.q, bars + kFixedBar, q0, bh);
+    load_tile<DP, kFixedRows>(s32 + L::kQ + L::kQBytes, &maps.q, bars + kFixedBar,
+                              q0 + kFixedRows, bh);
+    load(0);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    const uint32_t ph = (i >> 1) & 1;
+    unsigned char* k = s + L::kK + st * 2 * L::kTile;
+    mbar_wait(bars + k_full(st), ph);
+    split_k<DP>(k, k + L::kTile, pt);
+    fence_async();
+    mbar_arrive(bars + k_ready(st));
+    if (pt == 0 && i + 1 < n) {
+      // stage st ^ 1: V's landed tile is free (the bar below), K once the
+      // consumers are done with tile i - 1
+      if (i >= 1) mbar_wait(bars + k_empty(st ^ 1), ((i - 1) >> 1) & 1);
+      load(i + 1);
+    }
+    if (i >= 2) mbar_wait(bars + v_empty(st), ((i >> 1) - 1) & 1);  // tile i - 2's V^T
+    mbar_wait(bars + v_full(st), ph);
+    unsigned char* vt = s + L::kVt + st * 2 * L::kTile;
+    transpose_v<DP>(s + L::kV + st * L::kTile, vt, vt + L::kTile, pt);
+    fence_async();
+    mbar_arrive(bars + v_ready(st));
+    bar_sync(5, 128);  // every producer thread is done with V's landed tile
+  }
+}
+
+// o[64 x DP] *= corr by row, unless corr is exactly 1 for every row of the
+// warp (once the row maxima settle)
+template <int DP>
+__device__ __forceinline__ void rescale(float (&o)[DP / 2], const float (&corr)[2]) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int j = 0; j < DP / 8; ++j) {
+      o[4 * j] *= corr[0];
+      o[4 * j + 1] *= corr[0];
+      o[4 * j + 2] *= corr[1];
+      o[4 * j + 3] *= corr[1];
+    }
+  }
+}
+
+// o[64 x DP] += e V over one walked tile in 3xTF32: e in registers as the A
+// fragments of its four k steps (hi and lo parts), V^T's parts at vt and vt
+// + kTile.  Committed as one group; returns while it runs.
+template <int DP>
+__device__ __forceinline__ void pv_issue(float (&o)[DP / 2], const uint32_t (&e_hi)[4][4],
+                                         const uint32_t (&e_lo)[4][4], uint32_t vt) {
+  const uint64_t b_hi = desc_sw128(vt, 16);
+  const uint64_t b_lo = desc_sw128(vt + Fold<DP>::kTile, 16);
+  fence_regs(o);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (DP == 128) {
+      wgmma_n128(o, e_lo[j], b_hi + 2 * j);
+      wgmma_n128(o, e_hi[j], b_lo + 2 * j);
+      wgmma_n128(o, e_hi[j], b_hi + 2 * j);
+    } else {
+      wgmma_n64(o, e_lo[j], b_hi + 2 * j);
+      wgmma_n64(o, e_hi[j], b_lo + 2 * j);
+      wgmma_n64(o, e_hi[j], b_hi + 2 * j);
+    }
+  }
+  wgmma_commit();
+}
+
+// One block per (bh, 128-row q tile) folds every 32-key tile its rows see
+// into their (m, l, o) state, held in registers, and writes the state back
+// once; warpgroups 0 and 1 each own 64 of the rows, warpgroup 2 produces.
+// A tile past the causal diagonal, or before the band of a sliding window,
+// is never loaded.
+//
+// A consumer's step over walked tile i: issue S_i = Q K_i^T, then o = o
+// corr + e V_{i-1}, the tile before's; wait for S_i and release K_i; the
+// online softmax of S_i in registers (m', corr, e, l) while that e V runs on
+// the tensor cores; wait for it and release V_{i-1}; split e into the A
+// fragments of the next step's e V.  Per tile the state updates in the
+// reference's order, o corr, then += e V, and each k step of a product runs
+// lo hi, hi lo, then hi hi.  Both consumers walk every tile of the block,
+// one whose rows see none of its keys included (the mask makes its update
+// an exact no-op: m' = m, corr = 1, e = 0): a product issued in a branch
+// that depends on the warpgroup stays in flight past the branch, and ptxas
+// then orders every wgmma of the kernel after the one before (C7518), which
+// made the fold 1.4 x slower at the train hop.
+template <int DP, bool kBand>
+__device__ __forceinline__ void fold_f32(const Maps& maps, const FoldParams& p,
+                                         unsigned char* raw) {
+  using L = Fold<DP>;
+  // the causal q tiles see more keys the later they are: last tiles first
   const int bh = blockIdx.x;
   const int q_tile = p.causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
   const int q0 = q_tile * kRows;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int wq0 = q0 + warp * 16;
-  int n_k = (p.tk + kFoldStep - 1) / kFoldStep;
+  int n_k = (p.tk + kWalkRows - 1) / kWalkRows;
   int first = 0;
   if (p.causal) {
     const int last_row = min(q0 + kRows, p.tq) - 1;
     const int64_t last_key = p.q_off + last_row - p.k_off;
-    const int64_t need = last_key < 0 ? 0 : last_key / kFoldStep + 1;
+    const int64_t need = last_key < 0 ? 0 : last_key / kWalkRows + 1;
     if (need < n_k) n_k = (int)need;
     if constexpr (kBand) {
       // the first key the block's first row sees in its band
       const int64_t first_key = p.q_off + q0 - p.window + 1 - p.k_off;
-      if (first_key > 0) first = first_key / kFoldStep < n_k ? (int)(first_key / kFoldStep) : n_k;
+      if (first_key > 0) first = first_key / kWalkRows < n_k ? (int)(first_key / kWalkRows) : n_k;
     }
   }
   if (first >= n_k) return;  // a fully masked block: the state stays as it is
+  const int n = n_k - first;
 
-  const int64_t kbase = (int64_t)bh * p.tk;
+  const uint32_t raw32 = smem_u32(raw);
+  const uint32_t s32 = (raw32 + 1023u) & ~1023u;
+  unsigned char* s = raw + (s32 - raw32);
+  const uint32_t bars = s32 + L::kBars;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 5; ++i) mbar_init(bars + 8 * i, 1);            // TMA's bytes
+    for (int i = 5; i < 9; ++i) mbar_init(bars + 8 * i, 128);          // the producer
+    for (int i = 9; i < 13; ++i) mbar_init(bars + 8 * i, kConsumers);  // the consumers
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    fold_produce<DP>(s, s32, maps, q0, first, n, bh);
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wg = threadIdx.x / 128;
+  const int l = threadIdx.x % 128;
+  const int g = (l % 32) / 4, t4 = l % 4;
+  const int r0 = q0 + wg * kFixedRows;         // this consumer's first row
+  const int row = r0 + 16 * (l / 32) + g;      // this thread's rows: row, row + 8
   const int64_t qbase = (int64_t)bh * p.tq;
-  auto stage_k = [&](int jt, int s) {
-    stage<float, DP, kFoldStep>(ks + s * kStep, p.k, kbase, p.tk, p.d, jt * kFoldStep);
-    stage<float, DP, kFoldStep>(vs + s * kStep, p.v, kbase, p.tk, p.d, jt * kFoldStep);
-  };
-  stage<float, DP, kRows>(qs, p.q, qbase, p.tq, p.d, q0);
-  stage_k(first, 0);
-  cp_async_commit();
 
-  float m[2];
-  float l[2];
-  float o[DP / 8][4];
+  // the carried state of this thread's rows, o in the accumulator's layout
+  float m[2], lsum[2], o[DP / 2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wq0 + g + 8 * r;
-    const bool ok = row < p.tq;
-    const int64_t at = qbase + row;
-    m[r] = ok ? p.m[at] : kNegInf;
-    l[r] = ok ? p.l[at] : 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < p.tq;
+    const int64_t at = qbase + row + 8 * h;
+    m[h] = ok ? p.m[at] : kNegInf;
+    lsum[h] = ok ? p.l[at] : 0.f;
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + 2 * t4;
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
       float2 x = make_float2(0.f, 0.f);
       if (ok && c < p.d) x = *reinterpret_cast<const float2*>(p.o + at * p.d + c);
-      o[n][2 * r] = x.x;
-      o[n][2 * r + 1] = x.y;
+      o[4 * j + 2 * h] = x.x;
+      o[4 * j + 2 * h + 1] = x.y;
     }
   }
 
-  const int64_t last_q = p.q_off + min(wq0 + 16, p.tq) - 1;
-  // the distance from this warp's first row to a tile's last key, less kt0
-  const int64_t reach = p.q_off + wq0 - p.k_off - (kFoldStep - 1);
-  for (int jt = first; jt < n_k; ++jt) {
-    const int s = (jt - first) % kStages;
-    if (jt + 1 < n_k) stage_k(jt + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    const float* kt = ks + s * kStep;
-    const float* vt = vs + s * kStep;
-    const int kt0 = jt * kFoldStep;
-    const bool sees = !p.causal || (last_q >= p.k_off + kt0 && (!kBand || reach - kt0 < p.window));
-    if (wq0 < p.tq && sees) {
-      float sc[kN][4];
-      rows_dot<float, DP>(sc, qs, warp * 16, kt);
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int row = wq0 + g + 8 * (i >> 1);
-          const int key = kt0 + 8 * j + 2 * t4 + (i & 1);
-          const bool seen =
-              kBand ? (uint64_t)(p.q_off + row - p.k_off - key) < (uint64_t)p.window
-                    : p.q_off + row >= p.k_off + key;
-          const bool live = key < p.tk && (!p.causal || seen);
-          sc[j][i] = live ? sc[j][i] * p.scale : kNegInf;
-          mx[i >> 1] = fmaxf(mx[i >> 1], sc[j][i]);
-        }
-      }
-      float corr[2];
-      float m_new[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        // a row's keys sit in the four lanes of one quad
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        m_new[r] = fmaxf(m[r], mx[r]);
-        corr[r] = exp_f32(m[r] - m_new[r]);
-      }
-      float sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float x = sc[j][i];
-          const float e = x <= kNegInf * 0.5f ? 0.f : exp_f32(x - m_new[i >> 1]);  // masked guard
-          sc[j][i] = e;
-          sum[i >> 1] += e;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
-        sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
-        l[r] = l[r] * corr[r] + sum[r];
-        m[r] = m_new[r];
-      }
-      // once the row maxima settle, corr is exactly 1: skip the rescale
-      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
-#pragma unroll
-        for (int n = 0; n < DP / 8; ++n) {
-          o[n][0] *= corr[0];
-          o[n][1] *= corr[0];
-          o[n][2] *= corr[1];
-          o[n][3] *= corr[1];
-        }
-      }
-      acc_dot<float, DP>(o, sc, vt);  // o += e V
+  // this consumer's rows of Q: lo parts in place, hi parts in registers
+  const uint32_t q_at = s32 + L::kQ + wg * L::kQBytes;
+  uint32_t q_hi[DP / 8][4];
+  mbar_wait(bars + kFixedBar, 0);
+  split_fixed<DP>(s + L::kQ + wg * L::kQBytes, q_hi);
+  fence_async();
+  bar_sync(1 + wg, 128);
+  const int64_t r_first = p.q_off + r0;  // position of this consumer's first row
+  uint32_t e_hi[4][4], e_lo[4][4];
+  float corr[2] = {1.f, 1.f};
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    const int kt0 = (first + i) * kWalkRows;
+    const int64_t k_first = p.k_off + kt0;
+    mbar_wait(bars + k_ready(st), (i >> 1) & 1);
+    if (i > 0) mbar_wait(bars + v_ready(st ^ 1), ((i - 1) >> 1) & 1);
+    float c[16];
+    const uint32_t k = s32 + L::kK + st * 2 * L::kTile;
+    rows_issue<DP>(c, q_hi, q_at, k, k + L::kTile);  // S = Q K^T
+    if (i > 0) {
+      rescale<DP>(o, corr);
+      pv_issue<DP>(o, e_hi, e_lo, s32 + L::kVt + (st ^ 1) * 2 * L::kTile);  // o += e V
+      wgmma_wait1();
+    } else {
+      wgmma_wait0();
     }
-    __syncthreads();
+    fence_regs(c);
+    mbar_arrive(bars + k_empty(st));
+    // every (row, key) pair live: no mask to evaluate
+    const bool full = kt0 + kWalkRows <= p.tk &&
+                      (!p.causal || (r_first >= k_first + kWalkRows - 1 &&
+                                     (!kBand || r_first + kFixedRows - 1 - k_first < p.window)));
+    const int diag = tile_diag(p.causal, r_first, k_first);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // element 4j + e: row 16w + g + 8 (e / 2), key 8j + 2t + e % 2 of the tile
+        bool live = true;
+        if (!full) {
+          const int a = 16 * (l / 32) + g + 8 * (e >> 1);
+          const int b = 8 * j + 2 * t4 + (e & 1);
+          const bool out =
+              kBand ? (unsigned)(a - b + diag) >= (unsigned)p.window : a - b + diag < 0;
+          live = b < p.tk - kt0 && !out;
+        }
+        c[4 * j + e] = live ? c[4 * j + e] * p.scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], c[4 * j + e]);
+      }
+    }
+    float m_new[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // a row's keys sit in the four lanes of one quad
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      m_new[h] = fmaxf(m[h], mx[h]);
+      corr[h] = exp_f32(m[h] - m_new[h]);
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = c[4 * j + e];
+        const float ex = x <= kNegInf * 0.5f ? 0.f : exp_f32(x - m_new[e >> 1]);  // masked guard
+        c[4 * j + e] = ex;
+        sum[e >> 1] += ex;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+      sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+      lsum[h] = lsum[h] * corr[h] + sum[h];
+      m[h] = m_new[h];
+    }
+    if (i > 0) {
+      wgmma_wait0();  // e V of tile i - 1
+      fence_regs(o);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        fence_regs(e_hi[j]);
+        fence_regs(e_lo[j]);
+      }
+      mbar_arrive(bars + v_empty(st ^ 1));
+    }
+    // e as the A fragments of its four k steps: k index t is key 8j + 2t,
+    // t + 4 key 8j + 2t + 1 (transpose_v puts V's rows in that order)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      split(c[4 * j], e_hi[j][0], e_lo[j][0]);
+      split(c[4 * j + 2], e_hi[j][1], e_lo[j][1]);
+      split(c[4 * j + 1], e_hi[j][2], e_lo[j][2]);
+      split(c[4 * j + 3], e_hi[j][3], e_lo[j][3]);
+    }
+  }
+  {
+    const int st = (n - 1) & 1;
+    mbar_wait(bars + v_ready(st), ((n - 1) >> 1) & 1);
+    rescale<DP>(o, corr);
+    pv_issue<DP>(o, e_hi, e_lo, s32 + L::kVt + st * 2 * L::kTile);
+    wgmma_wait0();
+    fence_regs(o);
   }
 
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wq0 + g + 8 * r;
-    if (row >= p.tq) continue;
-    const int64_t at = qbase + row;
+  for (int h = 0; h < 2; ++h) {
+    const int rr = row + 8 * h;
+    if (rr >= p.tq) continue;
+    const int64_t at = qbase + rr;
     if (t4 == 0) {
-      p.m[at] = m[r];
-      p.l[at] = l[r];
+      p.m[at] = m[h];
+      p.l[at] = lsum[h];
     }
 #pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + 2 * t4;
+    for (int j = 0; j < DP / 8; ++j) {
+      const int c = 8 * j + 2 * t4;
       if (c < p.d) {
-        *reinterpret_cast<float2*>(p.o + at * p.d + c) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+        *reinterpret_cast<float2*>(p.o + at * p.d + c) =
+            make_float2(o[4 * j + 2 * h], o[4 * j + 2 * h + 1]);
       }
     }
   }
 }
 
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 1) fold_f32_kernel(const FoldParams p) {
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    fold_f32_kernel(const __grid_constant__ Maps maps, const FoldParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fold_f32<DP, false>(p, smem);
+  fold_f32<DP, false>(maps, p, smem);
 }
 
 // the fold with a sliding window, a kernel of its own as B4's
 template <int DP>
-__global__ void __launch_bounds__(kThreads, 1) fold_band_kernel(const FoldParams p) {
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    fold_band_kernel(const __grid_constant__ Maps maps, const FoldParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
-  fold_f32<DP, true>(p, smem);
+  fold_f32<DP, true>(maps, p, smem);
 }
 
 // ---------------------------------------------------------------------------
@@ -1689,19 +1906,19 @@ int backward_bf16(const BwdParams<__nv_bfloat16>& p, cudaStream_t stream) {
 }
 
 template <int DP>
-int launch_fold(const FoldParams& p, cudaStream_t stream) {
-  constexpr int kSmem = fold_smem<DP>();
+int launch_fold(const Maps& maps, const FoldParams& p, cudaStream_t stream) {
+  constexpr int kSmem = Fold<DP>::kSmem;
   static_assert(kSmem <= 232448, "a block's shared memory");
   const dim3 grid(p.bh, tiles(p.tq, kRows));
   if (p.window != kNoWindow) {
     const int err = set_smem(fold_band_kernel<DP>, kSmem);
     if (err != 0) return err;
-    fold_band_kernel<DP><<<grid, kThreads, kSmem, stream>>>(p);
+    fold_band_kernel<DP><<<grid, kConsumers + 128, kSmem, stream>>>(maps, p);
     return (int)cudaGetLastError();
   }
   const int err = set_smem(fold_f32_kernel<DP>, kSmem);
   if (err != 0) return err;
-  fold_f32_kernel<DP><<<grid, kThreads, kSmem, stream>>>(p);
+  fold_f32_kernel<DP><<<grid, kConsumers + 128, kSmem, stream>>>(maps, p);
   return (int)cudaGetLastError();
 }
 
@@ -1834,10 +2051,18 @@ extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const vo
   p.causal = causal;
   p.window = band(causal, window);
   p.scale = scale;
-  if (d <= 16) return launch_fold<16>(p, stream);
-  if (d <= 32) return launch_fold<32>(p, stream);
-  if (d <= 64) return launch_fold<64>(p, stream);
-  return launch_fold<128>(p, stream);
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return 999;
+  Maps maps{};
+  CUtensorMap* out[3] = {&maps.q, &maps.k, &maps.v};
+  const void* ptrs[3] = {q, k, v};
+  const int ts[3] = {tq, tk, tk};
+  for (int i = 0; i < 3; ++i) {
+    const CUresult res = encode(fn, out[i], ptrs[i], bh, ts[i], d);
+    if (res != CUDA_SUCCESS) return 1000 + (int)res;
+  }
+  if (d <= 64) return launch_fold<64>(maps, p, stream);
+  return launch_fold<128>(maps, p, stream);
 }
 
 // Dynamic shared memory a block of each kernel takes at head dim d:
@@ -1845,10 +2070,7 @@ extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const vo
 // non-zero), 2 the f32 fold.
 extern "C" int tpu_flash_train_smem_bytes(int kernel, int d, int bf16) {
   if (d <= 0 || d > 128) return -1;
-  if (kernel == 2) {
-    return d <= 16 ? fold_smem<16>() : d <= 32 ? fold_smem<32>() : d <= 64 ? fold_smem<64>()
-                                                                            : fold_smem<128>();
-  }
+  if (kernel == 2) return d <= 64 ? Fold<64>::kSmem : Fold<128>::kSmem;
   if (bf16) return backward_smem_bf16(d, kernel);
   return d <= 64 ? Wg<64>::kSmem : Wg<128>::kSmem;  // both f32 kernels
 }

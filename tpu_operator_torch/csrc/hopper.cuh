@@ -1,7 +1,7 @@
 // Hopper (sm_90a) primitives shared by the kernels that feed warpgroup
 // products through TMA and mbarriers: flash_forward_sm90.cu (B5's prefill),
-// flash_backward.cu (B4's f32 entry) and dma_pipeline.cu (the bulk-copy
-// ring).  Each of those is built into a library of its own; the build
+// flash_backward.cu (B4's and B3's f32 entries) and dma_pipeline.cu (the
+// bulk-copy ring).  Each of those is built into a library of its own; the build
 // (kernels/_build.py) hashes every header under csrc/ with the source, so
 // an edit here rebuilds all three.
 
@@ -84,12 +84,25 @@ __device__ __forceinline__ void wgmma_wait0() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// every committed group but the last has completed
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous product (the asm statements stay in order).
 template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// The same for an A operand in registers: its registers stay its own until
+// here, so nothing reuses them while a product still reads them.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,

@@ -21,9 +21,10 @@ plain PyTorch versions.
   ``mma.sync`` entry here, 16-row q tiles whose warps split the live keys
   (the ring hop's 4 x 512 rows fill the card that way); f32 q/k/v, the
   transformer step's (its weights are f32), to ``tpu_flash_block_update_f32``
-  in ``csrc/flash_backward.cu`` (3xTF32 ``mma.sync``: f32 products on the
-  tensor cores), which also takes a sliding window: a causal fold that
-  keeps only the keys less than ``window`` positions before each query.
+  in ``csrc/flash_backward.cu`` (3xTF32 ``wgmma`` fed by TMA: f32 products
+  on the tensor cores), which also takes a sliding window: a causal fold
+  that keeps only the keys less than ``window`` positions before each
+  query.
 
 ``workloads/longctx.py`` and ``workloads/ring_attention.py`` re-export them
 under the same names, the reference's.
@@ -54,6 +55,7 @@ forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0, "paged_f32"
 FORWARD_PATHS = ("wgmma", "split", "mma", "f32")  # what ``_flash_forward_on`` takes
 block_update_launches = 0      # the bf16 entry
 block_update_f32_launches = 0  # the f32 entry
+block_update_f32_path_launches = {"wgmma": 0}  # the f32 entry, by the body that ran
 
 MAX_HEAD_DIM = 128
 
@@ -643,6 +645,7 @@ def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal, window=0):
         raise RuntimeError(f"flash block update kernel launch failed: cudaError {rc}")
     if f32:
         block_update_f32_launches += 1
+        block_update_f32_path_launches["wgmma"] += 1
     else:
         block_update_launches += 1
     return m, l, o
