@@ -298,6 +298,32 @@ def require(cond: bool, msg: str) -> None:
         raise RuntimeError(msg)
 
 
+def launches_since(before: dict) -> dict:
+    """Each C entry's launches in this process since ``before``, a
+    ``_build.launches()``."""
+    from tpu_operator_torch.kernels import _build
+
+    return {entry: n - before[entry] for entry, n in _build.launches().items()}
+
+
+def forward_paths_since(before: dict) -> dict:
+    """B5's launches since ``before`` by path: the forward's paths and the
+    serving engine's paged entry."""
+    from tpu_operator_torch.kernels import flash_attention as fa
+
+    n = launches_since(before)
+    entries = {**fa.FORWARD_ENTRIES, "paged_f32": "tpu_flash_paged_f32"}
+    return {path: n[entry] for path, entry in entries.items()}
+
+
+def remat_since(before: dict) -> tuple:
+    """(B3 f32, B4) launches since ``before``, a
+    ``ring_attention.remat_launches()``."""
+    from tpu_operator_torch.workloads import ring_attention
+
+    return tuple(n - before[key] for key, n in ring_attention.remat_launches().items())
+
+
 def peaks(name: str) -> tuple:
     """(memory bytes/s, bf16 FLOP/s, f32 CUDA-core FLOP/s, TF32 FLOP/s) of
     the card, from the data sheets."""
@@ -350,7 +376,7 @@ def build_phase() -> None:
                     "the wgmma kernel spills at D 128")
     # the training kernels' registers and spills, and the shared memory a
     # block takes (dynamic, so not in ptxas's lines)
-    lib, _ = _build.library("flash_backward")
+    smem_bytes = _build.bind("tpu_flash_train_smem_bytes")
     names = {"dkdv_kernel": 0, "dq_kernel": 1, "fold_f32_kernel": 2, "dkdv_band_kernel": 0,
              "dq_band_kernel": 1, "fold_band_kernel": 2}
     lines = built["flash_backward"].log.splitlines()
@@ -358,17 +384,14 @@ def build_phase() -> None:
         kernel = next((k for k in names if k in line), None)
         if "Compiling entry function" not in line or kernel is None:
             continue
-        dp = next(d for d in (128, 64, 32, 16) if f"Li{d}E" in line)
-        dtype = "bf16" if "nv_bfloat16" in line else "f32"
+        dp = next(d for d in (128, 64) if f"Li{d}E" in line)
         usage = " | ".join(x.strip() for x in lines[i + 2:i + 4])
-        smem = lib.tpu_flash_train_smem_bytes(names[kernel], dp, int(dtype == "bf16"))
-        # the f32 kernels: ptxas counts the launch's 384 threads; setmaxnreg
-        # then gives the two product warpgroups 232 and the producer 40
-        split = (" (setmaxnreg: 232 a product thread, 40 a producer thread)"
-                 if dtype == "f32" else "")
-        print(f"build: {kernel} {dtype} D {dp}: {usage}{split} | {smem} bytes of shared memory",
+        # ptxas counts the launch's 384 threads; setmaxnreg then gives the
+        # two product warpgroups 232 and the producer 40
+        print(f"build: {kernel} f32 D {dp}: {usage} (setmaxnreg: 232 a product thread, 40 a "
+              f"producer thread) | {smem_bytes(names[kernel], dp)} bytes of shared memory",
               flush=True)
-        require(not split or "0 bytes spill stores, 0 bytes spill loads" in usage,
+        require("0 bytes spill stores, 0 bytes spill loads" in usage,
                 f"{kernel} f32 spills at D {dp}")
 
 
@@ -417,11 +440,12 @@ def gate_phase(n_cards: int) -> int:
     import numpy as np
     import torch
 
-    from tpu_operator_torch.kernels import vector_add as va
+    from tpu_operator_torch.kernels import _build
     from tpu_operator_torch.workloads import collectives
 
-    va.launches = 0
-    by, launches = run_checks(GATE_CHECKS, n_cards, lambda: va.launches)
+    before = _build.launches()
+    by, launches = run_checks(GATE_CHECKS, n_cards,
+                              lambda: launches_since(before)["tpu_vector_add"])
     require(launches > 0, "the gate ran without launching the vector_add kernel")
 
     require(by["vector-add"]["max_error"] == 0.0, "vector-add disagrees with x + y")
@@ -445,16 +469,17 @@ def attention_phase(n_cards: int) -> tuple:
     """Run the long-context checks through the entry point, one check per
     run so that each path's launches are its own; returns the launches of
     the flash forward, of each of its paths, and of the block update."""
-    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import _build
 
-    def counts():
-        return fa.forward_launches, dict(fa.forward_path_launches), fa.block_update_launches
+    def counts(before):
+        by_path = forward_paths_since(before)
+        return (sum(by_path.values()), by_path,
+                launches_since(before)["tpu_flash_block_update_bf16"])
 
-    by, forward, paths, update = {}, 0, dict.fromkeys(fa.forward_path_launches, 0), 0
+    by, forward, paths, update = {}, 0, {}, 0
     for check, path in zip(ATTENTION_CHECKS, ATTENTION_PATHS):
-        fa.forward_launches = fa.block_update_launches = 0
-        fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
-        lines, (n, by_path, n_update) = run_checks((check,), n_cards, counts)
+        before = _build.launches()
+        lines, (n, by_path, n_update) = run_checks((check,), n_cards, lambda: counts(before))
         by.update(lines)
         if path is not None:
             # B5 on its planned path, and on no other
@@ -462,7 +487,7 @@ def attention_phase(n_cards: int) -> tuple:
                     f"{check} launched the flash forward {by_path} (expected only {path!r})")
         forward += n
         update += n_update
-        paths = {key: paths[key] + by_path[key] for key in paths}
+        paths = {key: paths.get(key, 0) + n for key, n in by_path.items()}
     ring = by["ring-attention"]
     if ring["devices"] > 1:
         # the ring ran in one process per card: rank 0 counted its own
@@ -484,11 +509,13 @@ def probes_phase(n_cards: int) -> int:
     """Run the post-ready perf probes through the entry point, as the
     validator's perf-probes pod does (RESULTS_SCOPE=perf); returns the
     DMA-pipeline kernel's launches."""
-    from tpu_operator_torch.kernels import dma_pipeline as dp
+    from tpu_operator_torch.kernels import _build
 
     checks = PROBE_CHECKS + (("ring",) if n_cards > 1 else ())
-    dp.launches = 0
-    by, launches = run_checks(checks, n_cards, lambda: dp.launches, scope="perf")
+    before = _build.launches()
+    by, launches = run_checks(checks, n_cards,
+                              lambda: launches_since(before)["tpu_dma_pipeline_copy"],
+                              scope="perf")
     require(launches > 0, "hbm-dma ran without launching the DMA-pipeline kernel")
     mm, hbm, dma = by["matmul"], by["hbm"], by["hbm-dma"]
     require(dma["kernel"] == "cuda-dma", f"hbm-dma copied with {dma['kernel']}")
@@ -518,17 +545,10 @@ def training_phase(n_cards: int) -> tuple:
     returns the launches of B3's f32 entry and of B4, and train's result.
     On 4 or more cards transformer-pp's first loss is held against the same
     run on as many gloo ranks on the host (the plain path)."""
-    from tpu_operator_torch.kernels import flash_attention as fa
-    from tpu_operator_torch.kernels import flash_backward as fb
+    from tpu_operator_torch.workloads import ring_attention
 
-    fa.block_update_f32_launches = 0
-    fa.block_update_f32_path_launches.update(dict.fromkeys(fa.block_update_f32_path_launches, 0))
-    fb.backward_launches = 0
-    by, (forward, backward, paths) = run_checks(
-        TRAIN_CHECKS, n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches,
-                                        dict(fa.block_update_f32_path_launches)))
-    # every f32 fold of this process went through the wgmma body
-    require(paths == {"wgmma": forward}, f"B3 f32's launches by body {paths}, of {forward}")
+    before = ring_attention.remat_launches()
+    by, (forward, backward) = run_checks(TRAIN_CHECKS, n_cards, lambda: remat_since(before))
     tr, train, pp = by["transformer"], by["train"], by["transformer-pp"]
     if n_cards > 1:
         # the checks ran in one process per card: rank 0 counted its own
@@ -566,16 +586,12 @@ def lm_training_phase(n_cards: int) -> tuple:
     layers on the windowed B3 f32 and B4 f32.  Returns the launches of
     each; fails unless both launched, the same number of times in every
     layer, and the losses are finite."""
-    from tpu_operator_torch.kernels import flash_attention as fa
-    from tpu_operator_torch.kernels import flash_backward as fb
-    from tpu_operator_torch.workloads import train_bench
+    from tpu_operator_torch.workloads import ring_attention, train_bench
 
     os.environ[train_bench.MODEL_ENV] = LM_MODEL
     try:
-        fa.block_update_f32_launches = 0
-        fb.backward_launches = 0
-        by, (forward, backward) = run_checks(
-            ("train",), n_cards, lambda: (fa.block_update_f32_launches, fb.backward_launches))
+        before = ring_attention.remat_launches()
+        by, (forward, backward) = run_checks(("train",), n_cards, lambda: remat_since(before))
     finally:
         del os.environ[train_bench.MODEL_ENV]
     train = by["train"]
@@ -760,11 +776,11 @@ def serving_ab(attend: str) -> dict:
     ``paths`` (B5's launches by path), ``gathers``, ``attend_calls`` and
     ``tail_calls`` (calls with a context at or past the 8-row tail) over the
     three runs, ``step_ms`` (each attend call of the batched run, the last)
-    and ``streams``.  Reads only names that this tree and the trees before
-    the paged attend share, so it times either."""
+    and ``streams``.  Reads only names that this tree and the trees since
+    the launches were counted by C entry share, so it times either."""
     import torch
 
-    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import _build
     from tpu_operator_torch.workloads import serving
 
     method = "_attend_flash" if attend == "flash" else "_attend_dense"
@@ -784,8 +800,7 @@ def serving_ab(attend: str) -> dict:
         gathers[0] += 1
         return gather(self, *args, **kwargs)
 
-    fa.forward_launches = 0
-    fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
+    before = _build.launches()
     streams = {}
     setattr(serving.ServingEngine, method, timed)
     serving.PagedKVCache.gather = counted
@@ -799,7 +814,7 @@ def serving_ab(attend: str) -> dict:
     torch.cuda.synchronize()
     batched = [start.elapsed_time(end) for engine, _, start, end in calls
                if engine is calls[-1][0]]
-    r.update(paths=dict(fa.forward_path_launches), gathers=gathers[0], attend_calls=len(calls),
+    r.update(paths=forward_paths_since(before), gathers=gathers[0], attend_calls=len(calls),
              tail_calls=sum(tail for _, tail, _, _ in calls), step_ms=batched,
              step_ms_median=statistics.median(batched), streams=streams, seconds=seconds)
     print(f"serving [{attend}]: identical_outputs {r['identical_outputs']}, tokens_per_sec "
@@ -819,11 +834,10 @@ def serving_phase(n_cards: int) -> dict:
     perf pod asks for it), quick_check's A/B in both attends on the card,
     and the replica's migrate-and-restore round trip.  Returns the paged
     kernel's launches in the flash run and both runs' results."""
-    from tpu_operator_torch.kernels import flash_attention as fa
+    from tpu_operator_torch.kernels import _build
 
-    fa.forward_launches = 0
-    fa.forward_path_launches.update(dict.fromkeys(fa.forward_path_launches, 0))
-    by, paths = run_checks(("serving",), n_cards, lambda: dict(fa.forward_path_launches),
+    before = _build.launches()
+    by, paths = run_checks(("serving",), n_cards, lambda: forward_paths_since(before),
                            scope="perf")
     check = by["serving"]
     require(check["ok"] and check["identical_outputs"] and check["backend"] == "cuda",
@@ -1015,10 +1029,10 @@ def _uuid(value) -> str:
 # the gate child: run_validation's entry point, then B1's launches in it
 _GATE_CHILD = """
 import json, sys
-from tpu_operator_torch.kernels import vector_add as va
+from tpu_operator_torch.kernels import _build
 from tpu_operator_torch.workloads import run_validation
 rc = run_validation.main()
-print(json.dumps({"vector_add_launches": va.launches}))
+print(json.dumps({"vector_add_launches": _build.launches()["tpu_vector_add"]}))
 sys.exit(rc)
 """
 _SEE_CHILD = """
@@ -1060,6 +1074,7 @@ def agents_phase(n_cards: int, root: str, name: str) -> dict:
     from tpu_operator_torch.agents.node_status_exporter import HealthAssessor
     from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin, PluginConfig
     from tpu_operator_torch.k8s import nodeinfo
+    from tpu_operator_torch.kernels import _build
     from tpu_operator_torch.kernels import dma_pipeline as dp
     from tpu_operator_torch.validator import status
     from tpu_operator_torch.validator.metrics import NodeMetrics
@@ -1147,7 +1162,7 @@ def agents_phase(n_cards: int, root: str, name: str) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     x = torch.randn(AGENTS_BUFFER, device="cuda", generator=gen)
     _, chunk, slots = DMA_PROBE
-    dp.launches = 0
+    launched = _build.launches()
     out = dp.dma_pipeline_copy(x, 16, chunk, slots)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -1165,7 +1180,7 @@ def agents_phase(n_cards: int, root: str, name: str) -> dict:
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     require(torch.equal(out, x), "B2's copy under the load differs from its input")
-    b2 = dp.launches
+    b2 = launches_since(launched)["tpu_dma_pipeline_copy"]
     del x, out
     duty = during[mine]["tpu_duty_cycle_percent"]
     rise = during[mine]["tpu_hbm_memory_usage_bytes"] - before[mine]["tpu_hbm_memory_usage_bytes"]
@@ -1248,9 +1263,7 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
     from tpu_operator_torch import consts, hw, nvml
     from tpu_operator_torch.deviceplugin.plugin import GPUDevicePlugin, PluginConfig
     from tpu_operator_torch.k8s import nodeinfo
-    from tpu_operator_torch.kernels import dma_pipeline as dp
-    from tpu_operator_torch.kernels import flash_attention as fa
-    from tpu_operator_torch.kernels import vector_add as va
+    from tpu_operator_torch.kernels import _build
     from tpu_operator_torch.validator import components, status
 
     cards = _card_lines()
@@ -1297,18 +1310,19 @@ def validator_phase(n_cards: int, root: str, name: str) -> dict:
         allocatable = sum(health == "Healthy" for _, health in plugin.snapshot())
         require(allocatable == n_cards, f"the device plugin advertises {plugin.snapshot()}")
         status.write_ready("plugin", {"allocatable": allocatable})
-        va.launches = 0
+        before = _build.launches()
         gate = run("jax")
-        b1 = va.launches
+        b1 = launches_since(before)["tpu_vector_add"]
         vector_add = [s for s in status.read_flight_record()
                       if s.get("check") == "vector-add" and s.get("phase") == "result"]
         require(gate["mode"] == "in-process" and gate["devices"] == n_cards, f"jax-ready {gate}")
         require(b1 > 0, "the validator's gate ran without launching the vector_add kernel")
         require(len(vector_add) == 1 and vector_add[0]["metrics"]["max_error"] == 0.0,
                 f"vector-add in the gate: {vector_add}")
-        dp.launches = fa.block_update_launches = 0
+        before = _build.launches()
         perf = run("perf")
-        b2, b3 = dp.launches, fa.block_update_launches
+        n = launches_since(before)
+        b2, b3 = n["tpu_dma_pipeline_copy"], n["tpu_flash_block_update_bf16"]
         probes = perf["checks"]
         if n_cards > 1:
             b3 += probes["ring-attention"]["launches"]  # rank 0's, in its own process
@@ -1404,12 +1418,12 @@ def partition_phase(n_cards: int, root: str) -> dict:
 # run_validation's gate and B1's launches in it
 _UNIT_CHILD = """
 import json, sys, torch
-from tpu_operator_torch.kernels import vector_add as va
+from tpu_operator_torch.kernels import _build
 from tpu_operator_torch.workloads import run_validation
 print(json.dumps({"uuids": [str(torch.cuda.get_device_properties(i).uuid)
                             for i in range(torch.cuda.device_count())]}))
 rc = run_validation.main()
-print(json.dumps({"vector_add_launches": va.launches}))
+print(json.dumps({"vector_add_launches": _build.launches()["tpu_vector_add"]}))
 sys.exit(rc)
 """
 SLICE_PROFILES = {"version": "v1", "slice-configs": {

@@ -22,6 +22,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 torch = pytest.importorskip("torch")
 
 from tpu_operator.workloads import ring_attention as jra  # noqa: E402
+from tpu_operator_torch.kernels import _build  # noqa: E402
 from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 from tpu_operator_torch.kernels import flash_backward as fb  # noqa: E402
 from tpu_operator_torch.workloads import _ranks  # noqa: E402
@@ -87,10 +88,10 @@ def test_block_backward_plain_matches_pallas(monkeypatch, dtype, mask, tiled):
     ref = [np.asarray(x) for x in ref]
     tqkvdo = [torch.from_numpy(x).to(getattr(torch, dtype)) for x in qkvdo]
     tacc = [torch.from_numpy(a.copy()) for a in acc]
-    before = fb.backward_launches
+    before = _build.launches()
     mine = fb.flash_block_backward(*tqkvdo, torch.from_numpy(lse), torch.from_numpy(dsum), *tacc,
                                    q_off, k_off, causal)
-    assert fb.backward_launches == before  # the CPU takes the plain version
+    assert _build.launches() == before  # the CPU takes the plain version
     assert all(a is b for a, b in zip(mine, tacc))  # updated in place
     for name, m, r, a in zip(("dq", "dk", "dv"), mine, ref, acc):
         if mask == "causal-fully-masked":
@@ -128,23 +129,26 @@ _SOURCE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 def test_b4_kernels_keep_the_names_the_benchmark_reads(kernel):
     """The benchmark finds B4 f32 in a device trace by its two kernels'
     demangled names (``benchmark/readings.py``): each is a ``__global__``
-    template whose first argument is the storage type, launched as
-    ``<float, DP>`` for f32, so its f32 instances read ``dkdv_kernel<float,
-    128>`` and its bf16 ones ``dkdv_kernel<__nv_bfloat16, 128>``."""
+    template whose first argument is the storage type, which only float
+    takes (a ``static_assert``), launched as ``<float, DP>``, so that its
+    instances read ``dkdv_kernel<float, 128>``.  The bf16 kernels, in
+    ``flash_attention.cu``, carry names the readers do not match."""
     readings = pytest.importorskip("benchmark.readings")
-    with open(_SOURCE) as f:
-        source = f.read()
-    declared = re.search(r"template <typename T, int DP>\s*__global__ void"
-                         r"(?:\s+__launch_bounds__\((?:[^()]|\([^()]*\))*\))?\s+" + kernel
-                         + r"\(", source)
-    assert declared, f"no __global__ template {kernel}<T, DP> in {_SOURCE}"
-    assert re.search(r"\b" + kernel + r"<float, DP><<<", source), \
+    code = _source_code()
+    declared = re.search(r"template <typename T, int DP>\s*__global__ void\s+"
+                         r"__launch_bounds__\(kConsumers \+ 128, 1\)\s+" + kernel
+                         + r"\([^)]*\)\s*\{\s*static_assert\(std::is_same<T, float>::value",
+                         code)
+    assert declared, f"no __global__ template {kernel}<T, DP> for float alone in {_SOURCE}"
+    assert re.search(r"\b" + kernel + r"<float, DP><<<", code), \
         f"{kernel} is not launched as <float, DP>"
     pattern = next(p for p in readings.B4_F32 if kernel in p)
     for dp in (64, 128):
-        name = f"void (anonymous namespace)::{kernel}<float, {dp}>(Maps, BwdParams<float>)"
+        name = f"void (anonymous namespace)::{kernel}<float, {dp}>(Maps, BwdParams)"
         assert re.search(pattern, name)
         assert not re.search(pattern, name.replace("float", "__nv_bfloat16"))
+        bf16 = kernel.replace("_kernel", "_mma_kernel")
+        assert not re.search(pattern, f"void (anonymous namespace)::{bf16}<{dp}>(BwdParams)")
     others = [p for p in readings.B4_F32 if kernel not in p]
     assert others and not any(re.search(p, f"{kernel}<float, 128>") for p in others)
 
@@ -177,17 +181,18 @@ def test_b3_kernels_keep_the_names_the_benchmark_reads(kernel, band):
 def test_the_fold_runs_on_wgmma_fed_by_tma():
     """B3 f32's body, from the fold's section to the launches, issues its
     products on ``wgmma`` (S = Q K^T through ``rows_issue``, o += e V through
-    ``pv_issue``) from tiles TMA lands, and nothing of the ``mma.sync``
-    fold it replaced: no ``cp.async`` and no warp-level product."""
+    ``pv_issue``) from tiles TMA lands, and the whole source holds the f32
+    training kernels alone: no ``mma.sync``, no ``cp.async`` and no bf16."""
     code = _source_code()
     start = code.index("struct Fold {")
     body = code[start:code.index("int set_smem(", start)]
     assert "rows_issue<DP>(" in body and "pv_issue<DP>(" in body
     assert "wgmma_n128(" in body and "wgmma_n64(" in body and "wgmma_commit()" in body
     assert "load_tile<DP, kWalkRows>(" in body and "setmaxnreg" in body
-    assert not re.search(r"cp_async|mma_all|rows_dot|acc_dot|mma\.sync", body)
-    # the warp-level f32 product is gone: mma.sync remains for bf16 B4 alone
-    assert "m16n8k8" not in code and "Mma<float>" not in code
+    assert not re.search(r"mma\.sync|m16n8k|cp\.async|cp_async|mma_all|rows_dot|acc_dot|bfloat16|"
+                         r"if constexpr \(sizeof", code)
+    with open(_SOURCE) as f:  # nor in its comments
+        assert not re.search(r"mma\.sync|cp\.async|__nv_bfloat16", f.read())
 
 
 def _fold_state(rng, bh, t, d):
@@ -215,9 +220,9 @@ def test_f32_block_update_matches_pallas(q_off, k_off, causal):
     q, k, v = (rng.standard_normal((bh, t, d), dtype=np.float32) for _ in range(3))
     ref = jra.flash_block_update(*map(jnp.asarray, (q, k, v)), q_off, k_off, m, l, o, causal)
     state = tuple(torch.from_numpy(np.array(x)) for x in (m, l, o))
-    before = (fa.block_update_launches, fa.block_update_f32_launches)
+    before = _build.launches()
     mine = fa.flash_block_update(*map(torch.from_numpy, (q, k, v)), q_off, k_off, *state, causal)
-    assert (fa.block_update_launches, fa.block_update_f32_launches) == before
+    assert _build.launches() == before
     assert all(a is b for a, b in zip(mine, state))
     for a, b in zip(mine, ref):
         if causal and k_off > q_off + t:

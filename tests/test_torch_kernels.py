@@ -14,6 +14,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tpu_operator_torch.kernels import _build  # noqa: E402
 from tpu_operator_torch.kernels import dma_pipeline as dp  # noqa: E402
 from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 from tpu_operator_torch.kernels import vector_add as va  # noqa: E402
@@ -28,6 +29,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     return torch.device("cuda")
+
+
+def _launched(before: dict) -> dict:
+    """The C entries launched since ``before`` (a ``_build.launches()``),
+    each with its number of launches."""
+    return {e: n - before[e] for e, n in _build.launches().items() if n != before[e]}
 
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -57,13 +64,91 @@ def test_hopper_helpers_are_defined_once():
     assert users == 3  # flash_forward_sm90.cu, flash_backward.cu, dma_pipeline.cu
 
 
+
+# the helpers of the mma.sync kernels and where each is defined: once, in
+# flash_attention.cu, which holds every such kernel; pack_bf16 also in
+# flash_forward_sm90.cu, whose wgmma prefill packs P in registers
+_MMA_SYNC_HELPERS = {
+    "cp_async16": ["flash_attention.cu"], "cp_async4": ["flash_attention.cu"],
+    "cp_async_commit": ["flash_attention.cu"], "cp_async_wait_1": ["flash_attention.cu"],
+    "mma_bf16_16816": ["flash_attention.cu"],
+    "pack_bf16": ["flash_attention.cu", "flash_forward_sm90.cu"],
+}
+
+
+def _sources() -> dict:
+    """Every kernel source under ``csrc/``, by file name, its comments removed."""
+    out = {}
+    for name in sorted(os.listdir(_CSRC)):
+        if name.endswith(".cu"):
+            with open(os.path.join(_CSRC, name)) as f:
+                out[name] = re.sub(r"//[^\n]*", "", f.read())
+    return out
+
+
+def test_mma_sync_helpers_are_defined_once():
+    """Each ``cp.async``, ``pack_bf16`` and m16n8k16 helper is defined in one
+    source (``pack_bf16`` in two, named above), and no other source issues a
+    ``cp.async`` of its own (the bulk copies of TMA aside) or an m16n8k16
+    product."""
+    defined = {helper: [] for helper in _MMA_SYNC_HELPERS}
+    for name, code in _sources().items():
+        for helper in defined:
+            if re.search(r"^[^\n(;]*\b" + helper + r"\([^;]*\)\s*\{", code, re.M):
+                defined[helper].append(name)
+        if name != "flash_attention.cu":
+            assert not re.search(r"cp\.async\.(?!bulk)|m16n8k16", code), name
+    assert defined == _MMA_SYNC_HELPERS
+
+
+def _c_entries() -> dict:
+    """Every ``extern "C"`` function of ``csrc/*.cu``: name -> (library, the
+    number of its parameters)."""
+    out = {}
+    for name, code in _sources().items():
+        for entry, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', code):
+            out[entry] = (name[:-3], len([p for p in params.split(",") if p.strip()]))
+    return out
+
+
+_C_ENTRIES = _c_entries()
+
+
+@pytest.mark.parametrize("entry", sorted(_C_ENTRIES))
+def test_each_c_entry_has_one_row_in_the_table(entry):
+    """The C interface is declared once: the entry's row is under its own
+    library and no other, with an argument type for each C parameter."""
+    library, n_params = _C_ENTRIES[entry]
+    assert [lib for lib, entries in _build.ENTRIES.items() if entry in entries] == [library]
+    assert len(_build.ENTRIES[library][entry]) == n_params
+
+
+def test_no_wrapper_binds_an_entry_outside_the_table():
+    """The table names only entries the sources define, and no module of
+    the port (nor ``chip_smoke.py``) binds an entry by attribute or names
+    one the table lacks: every call goes through ``_build.bind`` or
+    ``_build.launch``."""
+    table = {entry for entries in _build.ENTRIES.values() for entry in entries}
+    assert table == set(_C_ENTRIES)
+    root = os.path.dirname(_CSRC)
+    paths = [os.path.join(d, f) for d, _, files in os.walk(root) for f in files
+             if f.endswith(".py")]
+    paths.append(os.path.join(os.path.dirname(root), "chip_smoke.py"))
+    for path in paths:
+        with open(path) as f:
+            code = f.read()
+        assert not re.search(r"\.tpu_\w+", code), f"{path} binds a C entry by attribute"
+        named = set(re.findall(r"[\"'](tpu_(?:flash|vector|dma)_\w+)[\"']", code))
+        assert named <= table, f"{path} names {sorted(named - table)}"
+
+
 def test_cpu_tensors_take_the_plain_version():
     rng = torch.Generator().manual_seed(0)
     x = torch.randn(300, 600, generator=rng)
     y = torch.randn(300, 600, generator=rng)
-    before = va.launches
+    before = _build.launches()
     assert torch.equal(va.vector_add_kernel(x, y), x + y)
-    assert va.launches == before  # no kernel launched for CPU tensors
+    assert _launched(before) == {}  # no kernel launched for CPU tensors
 
 
 @pytest.mark.parametrize(
@@ -93,10 +178,10 @@ def test_kernel_bit_identical_to_plain(cuda, shape, offset):
     n = math.prod(shape) + offset
     x = torch.randn(n, generator=gen, device=cuda)[offset:].view(shape)
     y = torch.randn(n, generator=gen, device=cuda)[offset:].view(shape)
-    before = va.launches
+    before = _build.launches()
     out = va.vector_add_kernel(x, y)
     torch.cuda.synchronize()
-    assert va.launches == before + 1
+    assert _launched(before) == {"tpu_vector_add": 1}
     ref = va.vector_add_reference(x, y)
     assert torch.equal(out.view(torch.int32), ref.view(torch.int32))
 
@@ -113,10 +198,10 @@ def test_kernel_bit_identical_to_plain_half(cuda, dtype, shape, offset):
     n = math.prod(shape) + offset
     x = torch.randn(n, generator=gen, device=cuda).to(dtype)[offset:].view(shape)
     y = torch.randn(n, generator=gen, device=cuda).to(dtype)[offset:].view(shape)
-    before = va.launches
+    before = _build.launches()
     out = va.vector_add_kernel(x, y)
     torch.cuda.synchronize()
-    assert va.launches == before + 1 and out.dtype == dtype
+    assert _launched(before) == {"tpu_vector_add": 1} and out.dtype == dtype
     assert torch.equal(out.view(torch.int16), va.vector_add_reference(x, y).view(torch.int16))
 
 
@@ -154,8 +239,7 @@ def _scaled(a, b) -> float:
 
 def test_flash_cpu_tensors_take_the_plain_version():
     q, k, v = _qkv("cpu", 2, 48, 48, 8)
-    before = (fa.forward_launches, fa.block_update_launches)
-    paths_before = dict(fa.forward_path_launches)
+    before = _build.launches()
     out, lse = fa.flash_attention_local(q, k, v, True, 16, 16)
     # the decode's shape, which plans to the split on a card
     qd, kd, vd = _qkv("cpu", 2, 8, 1024, 8)
@@ -169,8 +253,7 @@ def test_flash_cpu_tensors_take_the_plain_version():
     got = fa.flash_block_update(q, k, v, 0, 0, m, l, o, True)
     assert got[0] is m and got[2] is o  # in place
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
-    assert (fa.forward_launches, fa.block_update_launches) == before
-    assert fa.forward_path_launches == paths_before
+    assert _launched(before) == {}
 
 
 @pytest.mark.parametrize(
@@ -210,10 +293,11 @@ def test_flash_block_update_rejects_a_wrong_state():
 )
 def test_flash_forward_kernel_matches_plain(cuda, bh, tq, tk, d, causal, q_off):
     q, k, v = _qkv(cuda, bh, tq, tk, d)
-    before = fa.forward_launches
+    before = _build.launches()
     out, lse = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off)
     torch.cuda.synchronize()
-    assert fa.forward_launches == before + 1
+    launched = _launched(before)
+    assert list(launched.values()) == [1] and set(launched) <= set(fa.FORWARD_ENTRIES.values())
     ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off)
     assert _scaled(out, ref) <= OUT_RTOL
     assert _rel(lse, ref_lse) <= STATE_RTOL
@@ -255,10 +339,10 @@ FORWARD_PATH_CASES = {
 def test_each_forward_path_matches_plain(cuda, path, case):
     _, bh, tq, tk, d, causal, q_off, k_off = case
     q, k, v = _qkv(cuda, bh, tq, tk, d, seed=3)
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     out, lse = fa._flash_forward_on(path, q, k, v, causal, q_off, k_off)
     torch.cuda.synchronize()
-    assert fa.forward_path_launches[path] == before[path] + 1
+    assert _launched(before) == {fa.FORWARD_ENTRIES[path]: 1}
     ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, q_off=q_off, k_off=k_off)
     if not ref.float().any():  # every row masked: exactly the reference's sentinel
         assert not out.float().any() and bool((lse == fa.NEG_INF).all())
@@ -273,12 +357,10 @@ def test_each_forward_path_matches_plain(cuda, path, case):
     (4, 40, 40, 8, 0, "mma"), (4, 1024, 1024, 32, 0, "mma")])
 def test_forward_plan_counts_its_path(cuda, bh, tq, tk, d, q_off, path):
     q, k, v = _qkv(cuda, bh, tq, tk, d, seed=4)
-    before = dict(fa.forward_path_launches)
-    total = fa.forward_launches
+    before = _build.launches()
     fa.flash_attention_local(q, k, v, True, q_off=q_off)
     torch.cuda.synchronize()
-    assert fa.forward_launches == total + 1
-    assert fa.forward_path_launches == {**before, path: before[path] + 1}
+    assert _launched(before) == {fa.FORWARD_ENTRIES[path]: 1}
 
 
 # kernel B5's f32 entry (the serving engine's flash attend): label, bh, tq,
@@ -300,11 +382,11 @@ def test_flash_forward_f32_kernel_matches_plain(cuda, case):
     plain version, masked rows exact, and two launches bit-identical."""
     _, bh, tq, tk, d, causal, q_off, k_off = case
     q, k, v = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=5))
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     out, lse = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
     again = fa.flash_attention_local(q, k, v, causal, 16, 8, q_off, k_off)
     torch.cuda.synchronize()
-    assert fa.forward_path_launches == {**before, "f32": before["f32"] + 2}
+    assert _launched(before) == {"tpu_flash_forward_f32": 2}
     assert out.dtype == torch.float32
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     ref, ref_lse = fa.flash_attention_local_reference(q, k, v, causal, 16, 8, q_off, k_off)
@@ -362,11 +444,11 @@ def test_flash_paged_kernel_matches_plain(cuda, case):
     bit-identical, and each request alone the same bits as its batch row."""
     _, lengths, *shape = case
     q, k_pool, v_pool, tables, lens = _paged_inputs(cuda, lengths, *shape)
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     out, lse = fa.flash_attention_paged(q, k_pool, v_pool, tables, lens)
     again = fa.flash_attention_paged(q, k_pool, v_pool, tables, lens)
     torch.cuda.synchronize()
-    assert fa.forward_path_launches == {**before, "paged_f32": before["paged_f32"] + 2}
+    assert _launched(before) == {"tpu_flash_paged_f32": 2}
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     for r in range(len(lengths)):
         alone = fa.flash_attention_paged(q[r:r + 1], k_pool, v_pool, tables[r:r + 1],
@@ -382,7 +464,7 @@ def test_flash_paged_kernel_matches_plain(cuda, case):
 @pytest.mark.cuda
 def test_flash_paged_rejects_what_the_kernel_does_not_take(cuda):
     q, k_pool, v_pool, tables, lens = _paged_inputs(cuda, [20, 9], 2, 16, 16, 8, 2)
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     with pytest.raises(ValueError):  # D 12: the kernel takes multiples of 8
         fa.flash_attention_paged(*(x[..., :12].contiguous() for x in (q, k_pool, v_pool)),
                                  tables, lens)
@@ -390,7 +472,7 @@ def test_flash_paged_rejects_what_the_kernel_does_not_take(cuda):
         fa.flash_attention_paged(q, k_pool, v_pool, tables.cpu(), lens)
     with pytest.raises(TypeError):  # int64 lengths
         fa.flash_attention_paged(q, k_pool, v_pool, tables, lens.long())
-    assert fa.forward_path_launches == before
+    assert _launched(before) == {}
 
 
 @pytest.mark.cuda
@@ -399,7 +481,7 @@ def test_forward_paths_reject_what_they_do_not_take(cuda, path):
     q, k, v = _qkv(cuda, 2, 256, 256, 64)
     base = torch.zeros(2 * 256 * 64 + 8, device=cuda, dtype=torch.bfloat16)
     unaligned = base[4:4 + 2 * 256 * 64].view(2, 256, 64)  # 8 bytes off
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     with pytest.raises(ValueError):
         fa._flash_forward_on(path, unaligned, k, v)
     with pytest.raises(ValueError):
@@ -412,7 +494,7 @@ def test_forward_paths_reject_what_they_do_not_take(cuda, path):
             fa._flash_forward_on(path, *(x[..., :32].contiguous() for x in (q, k, v)))
     with pytest.raises(ValueError):
         fa._flash_forward_on("tiles", q, k, v)
-    assert fa.forward_path_launches == before
+    assert _launched(before) == {}
 
 
 # the bf16 block update: label, bh, tq, tk, d, q_off, k_off, causal.  The
@@ -454,11 +536,11 @@ def test_flash_block_update_kernel_matches_plain(cuda, case):
     _, bh, tq, tk, d, q_off, k_off, causal = case
     (q, k, v), state = _update_inputs(cuda, bh, tq, tk, d, q_off, k_off)
     runs = [tuple(x.clone() for x in state) for _ in range(2)]
-    before = fa.block_update_launches
+    before = _build.launches()
     for run in runs:
         fa.flash_block_update(q, k, v, q_off, k_off, *run, causal)
     torch.cuda.synchronize()
-    assert fa.block_update_launches == before + 2
+    assert _launched(before) == {"tpu_flash_block_update_bf16": 2}
     assert all(torch.equal(a, b) for a, b in zip(*runs))
     m, l, o = runs[0]
     if causal and k_off > q_off + tq:
@@ -493,9 +575,9 @@ def _bits(device, shape, dtype=torch.float32, seed=0):
 
 def test_dma_cpu_tensors_take_the_plain_version():
     x, ints = _bits("cpu", (64, 512))
-    before = dp.launches
+    before = _build.launches()
     out = dp.dma_pipeline_copy(x, 2, 16, 2)
-    assert dp.launches == before
+    assert _launched(before) == {}
     assert out.data_ptr() != x.data_ptr()  # a copy, not the input
     assert torch.equal(out.view(ints), x.view(ints))
     assert torch.equal(out.view(ints), dp.dma_pipeline_copy_reference(x, 2).view(ints))
@@ -546,10 +628,10 @@ def test_dma_grid_fills_the_sms_with_rings(nbytes, tile, slots, blocks):
 def test_dma_kernel_bit_identical_to_plain(cuda, shape, iters, chunk_rows, slots):
     """A copy is bit for bit: compared as int32, NaN payloads included."""
     x, ints = _bits(cuda, shape)
-    before = dp.launches
+    before = _build.launches()
     out = dp.dma_pipeline_copy(x, iters, chunk_rows, slots)
     torch.cuda.synchronize()
-    assert dp.launches == before + 1
+    assert _launched(before) == {"tpu_dma_pipeline_copy": 1}
     assert torch.equal(out.view(ints), dp.dma_pipeline_copy_reference(x, iters).view(ints))
 
 
@@ -564,10 +646,10 @@ def test_dma_kernel_copies_bf16(cuda):
 @pytest.mark.cuda
 def test_dma_kernel_rejects_an_unaligned_view(cuda):
     x = torch.zeros(64 * 512 + 1, device=cuda)[1:].view(64, 512)
-    before = dp.launches
+    before = _build.launches()
     with pytest.raises(ValueError, match="16-byte aligned"):
         dp.dma_pipeline_copy(x, 1, 8, 1)
-    assert dp.launches == before
+    assert _launched(before) == {}
 
 
 # ---------------------------------------------------------------------------
@@ -627,10 +709,11 @@ def test_flash_block_backward_kernel_matches_plain(cuda, dtype, bh, tq, tk, d, q
     args, acc = _hop(cuda, dtype, bh, tq, tk, d, q_off, k_off, causal)
     ref = fb.flash_block_backward_reference(*args, *acc, q_off, k_off, causal)
     mine = tuple(a.clone() for a in acc)
-    before = fb.backward_launches
+    before = _build.launches()
     fb.flash_block_backward(*args, *mine, q_off, k_off, causal)
     torch.cuda.synchronize()
-    assert fb.backward_launches == before + 1
+    entry = "tpu_flash_block_backward_" + ("f32" if dtype == torch.float32 else "bf16")
+    assert _launched(before) == {entry: 1}
     for got, want, a in zip(mine, ref, acc):
         assert _scaled(got - a, want - a) <= BWD_RTOL[dtype]
 
@@ -674,12 +757,10 @@ def test_flash_block_update_f32_kernel_matches_plain(cuda, bh, tq, tk, d, q_off,
         _, k0, v0 = (x.float() for x in _qkv(cuda, bh, tq, tk, d, seed=4))
         state = fa.flash_block_update_reference(q, k0, v0, q_off, k_off, *state, False)
     m, l, o = (x.clone() for x in state)
-    before = (fa.block_update_launches, fa.block_update_f32_launches)
-    paths = dict(fa.block_update_f32_path_launches)
+    before = _build.launches()
     fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, causal)
     torch.cuda.synchronize()
-    assert (fa.block_update_launches, fa.block_update_f32_launches) == (before[0], before[1] + 1)
-    assert fa.block_update_f32_path_launches == {**paths, "wgmma": paths["wgmma"] + 1}
+    assert _launched(before) == {"tpu_flash_block_update_f32": 1}
     if causal and k_off > q_off + tq:
         assert all(torch.equal(a, b) for a, b in zip((m, l, o), state))
         return
@@ -799,7 +880,7 @@ def test_flash_block_backward_rejects_an_unaligned_view(cuda, dtype):
     base = torch.zeros(q.numel() + 4, device=cuda, dtype=dtype)
     unaligned = base[2:2 + q.numel()].view(q.shape)
     unaligned.copy_(q)
-    before = fb.backward_launches
+    before = _build.launches()
     with pytest.raises(ValueError, match="16-byte"):
         fb.flash_block_backward(unaligned, *args[1:], *acc, 0, 0, True)
-    assert fb.backward_launches == before
+    assert _launched(before) == {}

@@ -20,6 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from tpu_operator.workloads import longctx as jlc  # noqa: E402
+from tpu_operator_torch.kernels import _build  # noqa: E402
 from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 
 FLASH_OUT_RTOL = 1e-5  # f32 out vs Pallas: of max |ref|
@@ -188,18 +189,18 @@ def _args(d=16, dtype=torch.float32, table_dtype=torch.int32):
 ], ids=["f64", "bf16", "int64-tables", "head-dim-136", "table-rows", "pool-heads",
         "mixed-devices", "non-contiguous"])
 def test_paged_wrapper_refuses_what_the_kernel_does_not_take(args, err):
-    before = dict(fa.forward_path_launches)
+    before = _build.launches()
     with pytest.raises(err):
         fa.flash_attention_paged(*args)
-    assert fa.forward_path_launches == before
+    assert _build.launches() == before
 
 
 def test_paged_cpu_tensors_take_the_plain_version():
     """On the CPU the wrapper returns the plain version's bits and launches
-    nothing: its kernel counter stays where it was."""
+    nothing: no entry's launch count moves."""
     inputs = [torch.from_numpy(np.ascontiguousarray(a)) for a in _batch(16)[0]]
-    before, total = dict(fa.forward_path_launches), fa.forward_launches
+    before = _build.launches()
     got = fa.flash_attention_paged(*inputs)
     want = fa.flash_attention_paged_reference(*inputs)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert fa.forward_path_launches == before and fa.forward_launches == total
+    assert _build.launches() == before

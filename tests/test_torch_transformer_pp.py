@@ -25,6 +25,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from tpu_operator_torch.kernels import _build  # noqa: E402
 from tpu_operator_torch.kernels import flash_attention as fa  # noqa: E402
 from tpu_operator_torch.kernels import flash_backward as fb  # noqa: E402
 from tpu_operator_torch.workloads import _ranks  # noqa: E402
@@ -262,7 +263,7 @@ def test_stage_shape_kernels_match_plain(cuda, q_off, k_off):
     fresh = (torch.full((bh, t), fa.NEG_INF, device=cuda), torch.zeros((bh, t), device=cuda),
              torch.zeros((bh, t, d), device=cuda))
     m, l, o = (x.clone() for x in fresh)
-    before = (fa.block_update_f32_launches, fb.backward_launches)
+    before = _build.launches()
     fa.flash_block_update(q, k, v, q_off, k_off, m, l, o, True)
     rm, rl, ro = fa.flash_block_update_reference(q, k, v, q_off, k_off, *fresh, True)
     assert _scaled(o / l[..., None], ro / rl[..., None]) <= F32_RTOL
@@ -274,7 +275,8 @@ def test_stage_shape_kernels_match_plain(cuda, q_off, k_off):
     fb.flash_block_backward(q, k, v, do, lse, dsum, *mine, q_off, k_off, True)
     ref = fb.flash_block_backward_reference(q, k, v, do, lse, dsum, *acc, q_off, k_off, True)
     torch.cuda.synchronize()
-    assert (fa.block_update_f32_launches, fb.backward_launches) == (before[0] + 1,
-                                                                    before[1] + 1)
+    after = _build.launches()
+    assert [after[e] - before[e] for e in ("tpu_flash_block_update_f32",
+                                           "tpu_flash_block_backward_f32")] == [1, 1]
     for got, want, a in zip(mine, ref, acc):
         assert _scaled(got - a, want - a) <= F32_RTOL

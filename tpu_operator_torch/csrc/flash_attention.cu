@@ -1,5 +1,6 @@
-// Flash attention on bf16 tiles for Hopper (sm_90a): three entries over one
-// shared online-softmax tile update.
+// Flash attention on bf16 tiles for Hopper (sm_90a) on `mma.sync`: three
+// entries over one shared online-softmax tile update, and the block
+// backward.
 //
 //   tpu_flash_forward_bf16       replaces `_flash_full_kernel` /
 //       `flash_attention_local` (tpu_operator/workloads/longctx.py:47-150):
@@ -10,6 +11,9 @@
 //       `flash_block_update` (tpu_operator/workloads/ring_attention.py:118-218):
 //       folds one K/V block into the carried (m, l, o) state, in place,
 //       in 16-row q tiles whose warps split the keys (the split update).
+//   tpu_flash_block_backward_bf16  replaces `_flash_block_bwd_kernel` /
+//       `flash_block_backward` (ring_attention.py:577-683): one ring hop's
+//       backward, its own section below (kernel B4 on bf16).
 //
 // Both TPU kernels run `online_softmax_block_update`
 // (ring_attention.py:86-115); here that is `fold_tile`, and its numerics are
@@ -758,6 +762,457 @@ Params make_params(const void* q, const void* k, const void* v, int bh, int tq, 
   return p;
 }
 
+// ---------------------------------------------------------------------------
+// kernel B4 on bf16: mma.sync
+//
+// tpu_flash_block_backward_bf16 replaces `_flash_block_bwd_kernel` /
+// `flash_block_backward` (ring_attention.py:577-683) on bf16 q, k, v, dO:
+// the FlashAttention-2 backward of one ring hop, adding the hop's dq, dk and
+// dv into the travelling f32 accumulators in place (the f32 entry, the
+// training path's, is in flash_backward.cu).  Scores and masks as above;
+// P = exp(s - lse) from the forward's saved lse, under the same guard; dV +=
+// P^T dO; dP = dO V^T; dS = P (dP - D) with D = rowsum(dO O) given; dQ +=
+// dS K scale; dK += dS^T Q scale.  P is rounded to bf16 before P^T dO and dS
+// before dS K and dS^T Q (`.astype(q.dtype)` at :602 and :609), every
+// product accumulated in f32.
+//
+// Two kernels with no atomics, each output element written by one block in
+// a fixed order, so two launches give the same bits; S and dP are computed
+// in both.  dkdv_mma_kernel runs one block per (bh, 128-key tile), walking
+// the 32-row q tiles that see any of its keys; dq_mma_kernel one block per
+// (bh, 128-row q tile), walking the 32-key tiles it sees.  Under the causal
+// mask tiles past the diagonal are never loaded, and a block with no visible
+// tile writes nothing, so a fully masked hop leaves dq/dk/dv bit for bit.
+// Eight warps each own 16 rows and keep their accumulators in registers for
+// the whole walk; the walked tiles stream through a two-stage cp.async ring
+// with zero fill past T and past D; rows are stored in 16-byte chunks
+// XOR-swizzled by row (chunk ^ row % 8, rows of at least 128 bytes), so
+// every fragment load is free of bank conflicts.  The dk/dv kernel computes
+// S^T = K Q^T and dP^T = V dO^T with keys as M, so P^T and dS^T are already
+// the A operand of dV += P^T dO and dK += dS^T Q; the dq kernel keeps dS as
+// the A operand of dQ += dS K, two adjacent accumulators being the m16n8k16
+// fragment (FA2's reuse).  D is padded to 16, 32, 64 or 128, and a warp
+// whose rows see none of a tile's keys skips it, which changes nothing (P =
+// 0 there).
+
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kBwdWarps * 32;
+constexpr int kBwdRows = kBwdWarps * 16;  // rows of a block's fixed tile
+constexpr int kBwdStep = 32;              // rows of a walked tile
+
+struct BwdParams {
+  const __nv_bfloat16* q;     // [BH, Tq, D]
+  const __nv_bfloat16* k;     // [BH, Tk, D]
+  const __nv_bfloat16* v;     // [BH, Tk, D]
+  const __nv_bfloat16* dout;  // [BH, Tq, D]
+  const float* lse;           // [BH, Tq]
+  const float* dsum;          // [BH, Tq]  rowsum(dO * O)
+  float* dq;                  // [BH, Tq, D]  accumulated in place
+  float* dk;                  // [BH, Tk, D]  accumulated in place
+  float* dv;                  // [BH, Tk, D]  accumulated in place
+  int bh, tq, tk, d;
+  int64_t q_off, k_off;
+  int causal;
+  float scale;
+};
+
+// A tile of rows of DP bf16, row-major, its 16-byte chunks of 8 elements
+// XOR-swizzled by row; a row holds at least 128 bytes (8 chunks).
+template <int DP>
+struct Smem {
+  static constexpr int kRowElems = DP >= 64 ? DP : 64;
+  __device__ __forceinline__ static int at(int r, int c) {
+    return r * kRowElems + ((((c >> 3) ^ (r & 7)) << 3) | (c & 7));
+  }
+  static constexpr int bytes(int rows) { return rows * kRowElems * 2; }
+};
+
+// Rows [r0, r0 + ROWS) of one head (rows `base` on of a [BH, t, d] tensor)
+// into a swizzled tile, zero past t and past d.
+template <int DP, int ROWS>
+__device__ __forceinline__ void stage(__nv_bfloat16* s, const __nv_bfloat16* g, int64_t base,
+                                      int t, int d, int r0) {
+  using L = Smem<DP>;
+  constexpr int kChunks = DP / 8;
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kBwdThreads) {
+    const int r = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int row = r0 + r;
+    const bool ok = row < t && c < d;
+    cp_async16(s + L::at(r, c), ok ? g + (base + row) * d + c : g, ok);
+  }
+}
+
+// Fragments of lane (g, t) = (lane / 4, lane % 4) of m16n8k16 on bf16:
+//   load_a<L>(s, r0, k0):   A[m][k] = s[r0 + m][k0 + k]
+//   load_b_nk<L>(s, n0, k0): B[k][n] = s[n0 + n][k0 + k]
+//   load_b_kn<L>(s, k0, n0): B[k][n] = s[k0 + k][n0 + n]
+//   a_acc(c, j): the A operand of the j-th K step whose columns are the
+//       accumulators c[...] of 8 columns each, rounded to bf16 (P and dS,
+//       as the reference)
+//   mma_all<G>(c, a, b): c[j] += a b[j] for G tiles
+struct Mma {
+  static constexpr int kK = 16;
+  struct A {
+    uint32_t x[4];
+  };
+  struct B {
+    uint32_t x[2];
+  };
+  __device__ __forceinline__ static uint32_t word(const __nv_bfloat16* p) {
+    return *reinterpret_cast<const uint32_t*>(p);
+  }
+  __device__ __forceinline__ static uint32_t pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
+    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+  }
+  template <class L>
+  __device__ __forceinline__ static A load_a(const __nv_bfloat16* s, int r0, int k0) {
+    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+    return {{word(s + L::at(r0 + g, k0 + 2 * t)), word(s + L::at(r0 + g + 8, k0 + 2 * t)),
+             word(s + L::at(r0 + g, k0 + 2 * t + 8)), word(s + L::at(r0 + g + 8, k0 + 2 * t + 8))}};
+  }
+  template <class L>
+  __device__ __forceinline__ static B load_b_nk(const __nv_bfloat16* s, int n0, int k0) {
+    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+    return {{word(s + L::at(n0 + g, k0 + 2 * t)), word(s + L::at(n0 + g, k0 + 2 * t + 8))}};
+  }
+  template <class L>
+  __device__ __forceinline__ static B load_b_kn(const __nv_bfloat16* s, int k0, int n0) {
+    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
+    const int r = k0 + 2 * t;
+    return {{pair(s[L::at(r, n0 + g)], s[L::at(r + 1, n0 + g)]),
+             pair(s[L::at(r + 8, n0 + g)], s[L::at(r + 9, n0 + g)])}};
+  }
+  template <int N>
+  __device__ __forceinline__ static A a_acc(const float (&c)[N][4], int j) {
+    return {{pack_bf16(c[2 * j][0], c[2 * j][1]), pack_bf16(c[2 * j][2], c[2 * j][3]),
+             pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]),
+             pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3])}};
+  }
+  template <int G>
+  __device__ __forceinline__ static void mma_all(float (*c)[4], const A& x, const B (&y)[G]) {
+#pragma unroll
+    for (int j = 0; j < G; ++j) mma_bf16_16816(c[j], x.x, y[j].x[0], y[j].x[1]);
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void zero(float (&c)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
+}
+
+// c[16 x 8N] = A B^T over DP columns: A's 16 rows from r0 of `a`, B's 8N
+// rows from n0 = 0 of `b`, row-major tiles
+template <int DP, int N>
+__device__ __forceinline__ void rows_dot(float (&c)[N][4], const __nv_bfloat16* a, int r0,
+                                         const __nv_bfloat16* b) {
+  using L = Smem<DP>;
+  zero(c);
+#pragma unroll 2
+  for (int k0 = 0; k0 < DP; k0 += Mma::kK) {
+    const Mma::A x = Mma::load_a<L>(a, r0, k0);
+    Mma::B y[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) y[j] = Mma::load_b_nk<L>(b, 8 * j, k0);
+    Mma::mma_all<N>(c, x, y);
+  }
+}
+
+// acc[16 x DP] += P b: P's 16 x 8N from the accumulators p, b's first 8N
+// rows, DP columns
+template <int DP, int N>
+__device__ __forceinline__ void acc_dot(float (&acc)[DP / 8][4], const float (&p)[N][4],
+                                        const __nv_bfloat16* b) {
+  using L = Smem<DP>;
+#pragma unroll
+  for (int j = 0; j < 8 * N / Mma::kK; ++j) {
+    const Mma::A x = Mma::a_acc(p, j);
+    constexpr int G = DP / 8 < 4 ? DP / 8 : 4;
+#pragma unroll
+    for (int n0 = 0; n0 < DP / 8; n0 += G) {
+      Mma::B y[G];
+#pragma unroll
+      for (int n = 0; n < G; ++n) y[n] = Mma::load_b_kn<L>(b, j * Mma::kK, 8 * (n0 + n));
+      Mma::mma_all<G>(acc + n0, x, y);
+    }
+  }
+}
+
+// acc[r] += x[r] * scale over this lane's rows and columns of one warp's 16
+// rows [row0, row0 + 16) of a [BH, t, d] f32 tensor
+template <int DP>
+__device__ __forceinline__ void add_rows(float* out, const float (&x)[DP / 8][4], int64_t base,
+                                         int row0, int t, int d, float scale) {
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    if (row >= t) continue;
+    float* o = out + (base + row) * d;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const int c = 8 * n + 2 * t4;
+      if (c >= d) continue;
+      float2 y = *reinterpret_cast<float2*>(o + c);
+      y.x += x[n][2 * r] * scale;
+      y.y += x[n][2 * r + 1] * scale;
+      *reinterpret_cast<float2*>(o + c) = y;
+    }
+  }
+}
+
+template <int DP>
+constexpr int dkdv_smem() {
+  return 2 * Smem<DP>::bytes(kBwdRows) + kStages * 2 * Smem<DP>::bytes(kBwdStep) +
+         kStages * 2 * kBwdStep * (int)sizeof(float);
+}
+
+template <int DP>
+constexpr int dq_smem() {
+  return 2 * Smem<DP>::bytes(kBwdRows) + kStages * 2 * Smem<DP>::bytes(kBwdStep);
+}
+
+// One block per (bh, 128-key tile): dK and dV of its keys over every 32-row
+// q tile that sees one of them, added into dk/dv once at the end.
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1) dkdv_mma_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using L = Smem<DP>;
+  constexpr int kFixed = kBwdRows * L::kRowElems;
+  constexpr int kStep = kBwdStep * L::kRowElems;
+  constexpr int kN = kBwdStep / 8;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* vs = ks + kFixed;
+  __nv_bfloat16* qs = vs + kFixed;            // [stage][kBwdStep rows]
+  __nv_bfloat16* dos = qs + kStages * kStep;  // [stage][kBwdStep rows]
+  float* lses = reinterpret_cast<float*>(dos + kStages * kStep);  // [stage][kBwdStep]
+  float* dsums = lses + kStages * kBwdStep;
+
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBwdRows;  // key tile 0 sees the most q tiles: first
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const int wk0 = k0 + warp * 16;  // this warp's first key
+  const int n_q = (p.tq + kBwdStep - 1) / kBwdStep;
+  int first = 0;
+  if (p.causal) {
+    // query rows before `need` see none of this tile's keys
+    const int64_t need = p.k_off + k0 - p.q_off;
+    if (need >= p.tq) {
+      first = n_q;
+    } else if (need > 0) {
+      first = (int)(need / kBwdStep);
+    }
+  }
+  if (first >= n_q) return;  // a fully masked tile: dk/dv untouched
+
+  const int64_t kbase = (int64_t)bh * p.tk;
+  const int64_t qbase = (int64_t)bh * p.tq;
+  auto stage_q = [&](int it, int s) {
+    const int q0 = it * kBwdStep;
+    stage<DP, kBwdStep>(qs + s * kStep, p.q, qbase, p.tq, p.d, q0);
+    stage<DP, kBwdStep>(dos + s * kStep, p.dout, qbase, p.tq, p.d, q0);
+    const int i = threadIdx.x % kBwdStep;
+    const int row = q0 + i;
+    const bool ok = row < p.tq;
+    if (threadIdx.x < kBwdStep) {
+      cp_async4(lses + s * kBwdStep + i, ok ? p.lse + qbase + row : p.lse, ok);
+    } else if (threadIdx.x < 2 * kBwdStep) {
+      cp_async4(dsums + s * kBwdStep + i, ok ? p.dsum + qbase + row : p.dsum, ok);
+    }
+  };
+  stage<DP, kBwdRows>(ks, p.k, kbase, p.tk, p.d, k0);
+  stage<DP, kBwdRows>(vs, p.v, kbase, p.tk, p.d, k0);
+  stage_q(first, 0);
+  cp_async_commit();
+
+  float dk[DP / 8][4];
+  float dv[DP / 8][4];
+  zero(dk);
+  zero(dv);
+  for (int it = first; it < n_q; ++it) {
+    const int s = (it - first) % kStages;
+    if (it + 1 < n_q) stage_q(it + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();  // tile it has landed; only tile it + 1 may be in flight
+    __syncthreads();
+    __nv_bfloat16* qt = qs + s * kStep;
+    __nv_bfloat16* dot = dos + s * kStep;
+    const int q0 = it * kBwdStep;
+    const int64_t last_q = p.q_off + min(q0 + kBwdStep, p.tq) - 1;
+    if (wk0 < p.tk && (!p.causal || last_q >= p.k_off + wk0)) {
+      // S^T = K Q^T and dP^T = V dO^T, keys as rows
+      float st[kN][4];
+      float dpt[kN][4];
+      rows_dot<DP>(st, ks, warp * 16, qt);
+      rows_dot<DP>(dpt, vs, warp * 16, dot);
+      // every (key, row) pair live: no mask to evaluate
+      const bool full = q0 + kBwdStep <= p.tq && wk0 + 16 <= p.tk &&
+                        (!p.causal || p.q_off + q0 >= p.k_off + wk0 + 15);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = wk0 + g + 8 * (i >> 1);
+          const int col = 8 * j + 2 * t4 + (i & 1);
+          const int row = q0 + col;
+          const bool live = full || (row < p.tq && key < p.tk &&
+                                     (!p.causal || p.q_off + row >= p.k_off + key));
+          const float x = st[j][i] * p.scale;
+          // exact probabilities from the saved lse; the guard covers a row
+          // whose lse collapsed to NEG_INF
+          const float prob = (!live || x <= kNegInf * 0.5f)
+                                 ? 0.f
+                                 : exp2f((x - lses[s * kBwdStep + col]) * kLog2e);
+          st[j][i] = prob;
+          dpt[j][i] = prob * (dpt[j][i] - dsums[s * kBwdStep + col]);
+        }
+      }
+      // dV += P^T dO; dK += dS^T Q
+      acc_dot<DP>(dv, st, dot);
+      acc_dot<DP>(dk, dpt, qt);
+    }
+    __syncthreads();  // the stage is free for tile it + 2
+  }
+  add_rows<DP>(p.dk, dk, kbase, wk0, p.tk, p.d, p.scale);
+  add_rows<DP>(p.dv, dv, kbase, wk0, p.tk, p.d, 1.f);
+}
+
+// One block per (bh, 128-row q tile): dQ of its rows over every 32-key tile
+// it sees, added into dq once at the end.
+template <int DP>
+__global__ void __launch_bounds__(kBwdThreads, 1) dq_mma_kernel(const BwdParams p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  using L = Smem<DP>;
+  constexpr int kFixed = kBwdRows * L::kRowElems;
+  constexpr int kStep = kBwdStep * L::kRowElems;
+  constexpr int kN = kBwdStep / 8;
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* dos = qs + kFixed;
+  __nv_bfloat16* ks = dos + kFixed;          // [stage][kBwdStep rows]
+  __nv_bfloat16* vs = ks + kStages * kStep;  // [stage][kBwdStep rows]
+
+  const int bh = blockIdx.x;
+  // the causal q tiles see more keys the later they are: last tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
+  const int warp = threadIdx.x / 32;
+  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
+  const int wq0 = q0 + warp * 16;
+  int n_k = (p.tk + kBwdStep - 1) / kBwdStep;
+  if (p.causal) {
+    // the last key any row of this tile sees
+    const int last_row = min(q0 + kBwdRows, p.tq) - 1;
+    const int64_t last_key = p.q_off + last_row - p.k_off;
+    const int64_t need = last_key < 0 ? 0 : last_key / kBwdStep + 1;
+    if (need < n_k) n_k = (int)need;
+  }
+  if (n_k == 0) return;  // every key past every query: dq untouched
+
+  const int64_t kbase = (int64_t)bh * p.tk;
+  const int64_t qbase = (int64_t)bh * p.tq;
+  auto stage_k = [&](int jt, int s) {
+    stage<DP, kBwdStep>(ks + s * kStep, p.k, kbase, p.tk, p.d, jt * kBwdStep);
+    stage<DP, kBwdStep>(vs + s * kStep, p.v, kbase, p.tk, p.d, jt * kBwdStep);
+  };
+  stage<DP, kBwdRows>(qs, p.q, qbase, p.tq, p.d, q0);
+  stage<DP, kBwdRows>(dos, p.dout, qbase, p.tq, p.d, q0);
+  stage_k(0, 0);
+  cp_async_commit();
+
+  float lse[2];
+  float dsum[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = wq0 + g + 8 * r;
+    const bool ok = row < p.tq;
+    lse[r] = ok ? p.lse[qbase + row] : 0.f;
+    dsum[r] = ok ? p.dsum[qbase + row] : 0.f;
+  }
+  float dq[DP / 8][4];
+  zero(dq);
+  const int64_t last_q = p.q_off + min(wq0 + 16, p.tq) - 1;  // this warp's last row
+  for (int jt = 0; jt < n_k; ++jt) {
+    const int s = jt % kStages;
+    if (jt + 1 < n_k) stage_k(jt + 1, s ^ 1);
+    cp_async_commit();
+    cp_async_wait_1();
+    __syncthreads();
+    __nv_bfloat16* kt = ks + s * kStep;
+    __nv_bfloat16* vt = vs + s * kStep;
+    const int kt0 = jt * kBwdStep;
+    if (wq0 < p.tq && (!p.causal || last_q >= p.k_off + kt0)) {
+      float sc[kN][4];
+      float ds[kN][4];
+      rows_dot<DP>(sc, qs, warp * 16, kt);
+      rows_dot<DP>(ds, dos, warp * 16, vt);
+      const bool full = wq0 + 16 <= p.tq && kt0 + kBwdStep <= p.tk &&
+                        (!p.causal || p.q_off + wq0 >= p.k_off + kt0 + kBwdStep - 1);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int r = i >> 1;
+          const int row = wq0 + g + 8 * r;
+          const int key = kt0 + 8 * j + 2 * t4 + (i & 1);
+          const bool live = full || (row < p.tq && key < p.tk &&
+                                     (!p.causal || p.q_off + row >= p.k_off + key));
+          const float x = sc[j][i] * p.scale;
+          const float prob = (!live || x <= kNegInf * 0.5f) ? 0.f : exp2f((x - lse[r]) * kLog2e);
+          ds[j][i] = prob * (ds[j][i] - dsum[r]);
+        }
+      }
+      acc_dot<DP>(dq, ds, kt);  // dQ += dS K
+    }
+    __syncthreads();
+  }
+  add_rows<DP>(p.dq, dq, qbase, wq0, p.tq, p.d, p.scale);
+}
+
+template <typename Kernel>
+int set_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+template <int DP>
+int launch_backward(const BwdParams& p, cudaStream_t stream) {
+  constexpr int kDkdvSmem = dkdv_smem<DP>();
+  constexpr int kDqSmem = dq_smem<DP>();
+  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448, "a block's shared memory");
+  int err = set_smem(dkdv_mma_kernel<DP>, kDkdvSmem);
+  if (err != 0) return err;
+  err = set_smem(dq_mma_kernel<DP>, kDqSmem);
+  if (err != 0) return err;
+  dkdv_mma_kernel<DP><<<dim3(p.bh, (p.tk + kBwdRows - 1) / kBwdRows), kBwdThreads, kDkdvSmem,
+                        stream>>>(p);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  dq_mma_kernel<DP><<<dim3(p.bh, (p.tq + kBwdRows - 1) / kBwdRows), kBwdThreads, kDqSmem,
+                      stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// the copies move 16 bytes of q/k/v/dO at a time, the write-backs 8 of f32
+bool misaligned(const void* p, int bytes) { return reinterpret_cast<uintptr_t>(p) % bytes != 0; }
+
+int dispatch_backward(const BwdParams& p, cudaStream_t stream) {
+  if (p.d <= 0 || p.d > 128 || p.d % 8 != 0 || p.bh > 65535 || p.tq < 0 || p.tk < 0 ||
+      p.tq > 65535 * kBwdRows || p.tk > 65535 * kBwdRows) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (misaligned(p.q, 16) || misaligned(p.k, 16) || misaligned(p.v, 16) ||
+      misaligned(p.dout, 16) || misaligned(p.lse, 4) || misaligned(p.dsum, 4) ||
+      misaligned(p.dq, 8) || misaligned(p.dk, 8) || misaligned(p.dv, 8)) {
+    return (int)cudaErrorMisalignedAddress;
+  }
+  if (p.bh == 0 || p.tq == 0 || p.tk == 0) return (int)cudaSuccess;
+  if (p.d <= 16) return launch_backward<16>(p, stream);
+  if (p.d <= 32) return launch_backward<32>(p, stream);
+  if (p.d <= 64) return launch_backward<64>(p, stream);
+  return launch_backward<128>(p, stream);
+}
+
 }  // namespace
 
 // Full flash forward: out [BH, Tq, D] bf16 and lse [BH, Tq] f32 from q
@@ -804,4 +1259,38 @@ extern "C" int tpu_flash_block_update_bf16(const void* q, const void* k, const v
   p.l = l;
   p.o = o;
   return dispatch_split<true>(p, nullptr, 1, 0, stream);
+}
+
+// One ring hop's backward on bf16 q, k, v, dout [BH, T, D]: adds this hop's
+// dq [BH, Tq, D], dk and dv [BH, Tk, D] (f32, in place), from lse and dsum
+// [BH, Tq] f32; all contiguous; D a multiple of 8 up to 128; q/k/v/dout
+// 16-byte aligned.  The arguments of tpu_flash_block_backward_f32
+// (flash_backward.cu) without its sliding window.  Two kernels on `stream`,
+// no synchronize; returns the first failing launch's cudaError_t (0 on
+// success).
+extern "C" int tpu_flash_block_backward_bf16(const void* q, const void* k, const void* v,
+                                             const void* dout, const float* lse,
+                                             const float* dsum, float* dq, float* dk, float* dv,
+                                             int bh, int tq, int tk, int d, int64_t q_off,
+                                             int64_t k_off, int causal, float scale,
+                                             cudaStream_t stream) {
+  BwdParams p{};
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.lse = lse;
+  p.dsum = dsum;
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.bh = bh;
+  p.tq = tq;
+  p.tk = tk;
+  p.d = d;
+  p.q_off = q_off;
+  p.k_off = k_off;
+  p.causal = causal;
+  p.scale = scale;
+  return dispatch_backward(p, stream);
 }

@@ -1,48 +1,45 @@
-// The ring-remat training path's flash kernels for Hopper (sm_90a), f32 and
-// bf16 storage, on the tensor cores:
+// The ring-remat training path's flash kernels for Hopper (sm_90a) on f32
+// storage, on the tensor cores (`wgmma` fed by TMA):
 //
-//   tpu_flash_block_backward_f32 / _bf16  replace `_flash_block_bwd_kernel` /
+//   tpu_flash_block_backward_f32  replaces `_flash_block_bwd_kernel` /
 //       `flash_block_backward` (tpu_operator/workloads/ring_attention.py:
 //       577-683): the FlashAttention-2 backward of one ring hop (kernel B4),
 //       adding this hop's dq, dk, dv into the travelling f32 accumulators in
-//       place.  f32 runs on `wgmma` fed by TMA, bf16 on `mma.sync`.
+//       place (the bf16 entry is in flash_attention.cu).
 //   tpu_flash_block_update_f32  is kernel B3 (`_flash_block_kernel` /
 //       `flash_block_update`, ring_attention.py:118-218) on f32 q, k, v:
 //       the remat forward of the transformer step, whose weights, and so
-//       q, k, v, are f32 (the bf16 entry is in flash_attention.cu), on
-//       `wgmma` fed by TMA.
+//       q, k, v, are f32 (the bf16 entry is in flash_attention.cu).
 //
 // Numerics are the reference's.  Scores s = dot_f32(q, k) * scale, masked
 // scores are out (causal on global positions q_off + row >= k_off + col;
-// with a sliding window W, f32 only, also q_off + row - k_off - col < W),
-// and the guard s <= NEG_INF / 2 -> 0 with NEG_INF = -1e30.
+// with a sliding window W also q_off + row - k_off - col < W), and the guard
+// s <= NEG_INF / 2 -> 0 with NEG_INF = -1e30.
 //   Backward: P = exp(s - lse) from the forward's saved lse; dV += P^T dO;
 //   dP = dO V^T; dS = P (dP - D) with D = rowsum(dO O) given; dQ += dS K
-//   scale; dK += dS^T Q scale.  In bf16, P is rounded to bf16 before P^T
-//   dO and dS before dS K and dS^T Q (`.astype(q.dtype)` at :602 and :609),
-//   every product accumulated in f32.  In f32 nothing is rounded.
+//   scale; dK += dS^T Q scale.  In f32 nothing is rounded.
 //   Forward fold: m' = max(m, rowmax s), corr = exp(m - m'), e = exp(s -
 //   m'), l' = l corr + rowsum e, o' = o corr + e V, all f32.  exp is
-//   exp2f(x log2 e) (`exp_f32`), in B4's f32 kernels its MUFU form with
+//   exp2f(x log2 e) (`exp_f32`), in B4's kernels its MUFU form with
 //   subnormal results flushed to zero.
 //
-// Products.  bf16 runs `mma.sync` m16n8k16 bf16 -> f32.  f32 runs every
-// product as 3xTF32: each operand x is split into hi = rna(x) and lo =
-// rna(x - hi), rna being cvt.rna.tf32.f32's rounding (`tf32` below), and a b
-// accumulates as a_lo b_hi + a_hi b_lo, then a_hi b_hi, in f32, one k step
-// of 8 at a time (PyTorch's f32 SDPA backward does the same, as CUTLASS's
-// OpMultiplyAddFastF32).  A single TF32 pass keeps 10 mantissa bits and
-// misses the f32 limit 1e-4 of max |plain| by 5-12 x; the split stays
-// within 1.4 x of a plain f32 product (tests/test_torch_tf32_split.py
-// emulates both).  No product runs as one TF32 pass, and no hi part is a raw
-// f32 left for the tensor cores to truncate.  The tensor cores' f32
-// accumulation truncates, so a long sum of small terms drifts low: B4's
-// dk and dv, whose causal rows at T 32768 sum 32768 terms that shrink
-// along the walk, land 2e-4 of max |plain| off when one accumulator takes
-// the whole walk.  B4 f32 adds its accumulators into dq/dk/dv every 32
-// walked tiles (`flush`), which bounds the drift at any T.  B3's fold keeps
-// one accumulator for its whole walk: its o / l is a weighted mean, and at
-// T 32768 it lands 4e-6 of max |plain| off (`chip_smoke.py`'s long hop).
+// Products.  Every product runs as 3xTF32: each operand x is split into hi
+// = rna(x) and lo = rna(x - hi), rna being cvt.rna.tf32.f32's rounding
+// (`tf32` below), and a b accumulates as a_lo b_hi + a_hi b_lo, then a_hi
+// b_hi, in f32, one k step of 8 at a time (PyTorch's f32 SDPA backward does
+// the same, as CUTLASS's OpMultiplyAddFastF32).  A single TF32 pass keeps 10
+// mantissa bits and misses the f32 limit 1e-4 of max |plain| by 5-12 x; the
+// split stays within 1.4 x of a plain f32 product
+// (tests/test_torch_tf32_split.py emulates both).  No product runs as one
+// TF32 pass, and no hi part is a raw f32 left for the tensor cores to
+// truncate.  The tensor cores' f32 accumulation truncates, so a long sum of
+// small terms drifts low: B4's dk and dv, whose causal rows at T 32768 sum
+// 32768 terms that shrink along the walk, land 2e-4 of max |plain| off when
+// one accumulator takes the whole walk.  B4 adds its accumulators into
+// dq/dk/dv every 32 walked tiles (`flush`), which bounds the drift at any
+// T.  B3's fold keeps one accumulator for its whole walk: its o / l is a
+// weighted mean, and at T 32768 it lands 4e-6 of max |plain| off
+// (`chip_smoke.py`'s long hop).
 //
 // Bound, on an H100 SXM (494.5 TFLOP/s TF32 dense, 3 passes: 164.8 TFLOP/s
 // of f32 work; 3.35 TB/s): the train hop (BH 128, T 2048, D 128, causal,
@@ -73,7 +70,7 @@
 // were, with no extra test; the banded instances fold the causal test and
 // the band's into one unsigned compare, 0 <= query - key < W.
 //
-// f32 (`dkdv_f32`, `dq_f32`): three warpgroups, 384 threads.  A producer
+// Kernels (`dkdv_f32`, `dq_f32`): three warpgroups, 384 threads.  A producer
 // (setmaxnreg 40) loads the fixed tile pair (K and V, or Q and dO: 64 rows)
 // once and every walked tile pair (Q and dO, or K and V: 32 rows) by TMA
 // into a two-stage ring of 128-byte swizzled boxes of 32 columns; rows past
@@ -117,42 +114,26 @@
 // holds its accumulators (dV^T or dK^T at D 128: 64; dQ^T 32), the fixed
 // tile's hi parts (64), a score tile (16) and, in a product over the walked
 // rows, up to 64 of A fragments; no spills.
-// Measured on an H100 SXM at 700 W: the train hop 6.0 ms (the `mma.sync`
+// Measured on an H100 SXM at 700 W: the train hop 6.0 ms (the warp-level
 // kernels it replaced: 10.8), 0.35 of its 3xTF32 bound; the long-context
-// hop 365 ms, 0.37, of which the flushes take ~19 ms.  A dk/dv step of the heaviest block (clock64 stamps)
-// takes ~5,300 cycles: ~3,400 in the products, ~1,300 in the score work
-// between them (exp or dS, B's stores, the fence, the barriers) while the
-// tensor cores wait, the rest in hand-offs; the ~550 KB of shared memory a
-// step moves bound it next.
-//
-// bf16 (`dkdv_mma`, `dq_mma`): one block per (bh, 128-row fixed tile),
-// eight warps each owning 16 rows and keeping their accumulators in
-// registers for the whole walk; the walked tiles (32 rows) stream through a
-// two-stage cp.async ring with zero fill past T and past D; rows are stored
-// in 16-byte chunks XOR-swizzled by row (chunk ^ row % 8, rows of at least
-// 128 bytes), so every fragment load is free of bank conflicts.  The dk/dv
-// kernel computes S^T = K Q^T and dP^T = V dO^T with keys as M, so P^T and
-// dS^T are already the A operand of dV += P^T dO and dK += dS^T Q; the dq
-// kernel keeps dS as the A operand of dQ += dS K, two adjacent accumulators
-// being the m16n8k16 fragment (FA2's reuse).  D is padded to 16, 32, 64 or
-// 128, and a warp whose rows see none of a tile's keys skips it, which
-// changes nothing (P = 0 there).
+// hop 365 ms, 0.37, of which the flushes take ~19 ms.  A dk/dv step of the
+// heaviest block (clock64 stamps) takes ~5,300 cycles: ~3,400 in the
+// products, ~1,300 in the score work between them (exp or dS, B's stores,
+// the fence, the barriers) while the tensor cores wait, the rest in
+// hand-offs; the ~550 KB of shared memory a step moves bound it next.
 
 #include <cuda.h>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kWarps * 16;  // rows of a block's fixed tile
-constexpr int kStages = 2;
-constexpr int kBwdStep = 32;   // rows of a walked tile in the backward kernels
+constexpr int kRows = 128;  // query rows of a fold block: two consumers of 64
 // the window of a causal hop with no band: larger than any distance between
 // a query and a key (tiles' offsets are clamped to kFar), so that 0 <=
 // query - key < kNoWindow is the causal test alone
@@ -160,12 +141,11 @@ constexpr int kNoWindow = 1 << 30;
 constexpr int kFar = 1 << 28;
 constexpr int64_t kMaxWindow = 1 << 27;  // a window at least this long is none
 
-template <typename T>
 struct BwdParams {
-  const T* q;         // [BH, Tq, D]
-  const T* k;         // [BH, Tk, D]
-  const T* v;         // [BH, Tk, D]
-  const T* dout;      // [BH, Tq, D]
+  const float* q;     // [BH, Tq, D]
+  const float* k;     // [BH, Tk, D]
+  const float* v;     // [BH, Tk, D]
+  const float* dout;  // [BH, Tq, D]
   const float* lse;   // [BH, Tq]
   const float* dsum;  // [BH, Tq]  rowsum(dO * O)
   float* dq;          // [BH, Tq, D]  accumulated in place
@@ -193,61 +173,7 @@ struct FoldParams {
 };
 
 // ---------------------------------------------------------------------------
-// shared-memory tiles and copies
-
-// A tile of rows of DP elements of T, row-major, its 16-byte chunks
-// XOR-swizzled by row; a row holds at least 128 bytes (8 chunks).
-template <typename T, int DP>
-struct Smem {
-  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per chunk
-  static constexpr int kShift = kVec == 4 ? 2 : 3;
-  static constexpr int kRowElems = DP * (int)sizeof(T) >= 128 ? DP : 128 / (int)sizeof(T);
-  __device__ __forceinline__ static int at(int r, int c) {
-    return r * kRowElems + ((((c >> kShift) ^ (r & 7)) << kShift) | (c & (kVec - 1)));
-  }
-  static constexpr int bytes(int rows) { return rows * kRowElems * (int)sizeof(T); }
-};
-
-// 16 bytes global -> shared; zero fill when !valid (nothing is read then)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(addr), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(addr), "l"(src),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_1() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + ROWS) of one head (rows `base` on of a [BH, t, d] tensor)
-// into a swizzled tile, zero past t and past d.
-template <typename T, int DP, int ROWS>
-__device__ __forceinline__ void stage(T* s, const T* g, int64_t base, int t, int d, int r0) {
-  using L = Smem<T, DP>;
-  constexpr int kChunks = DP / L::kVec;
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = (i % kChunks) * L::kVec;
-    const int row = r0 + r;
-    const bool ok = row < t && c < d;
-    cp_async16(s + L::at(r, c), ok ? g + (base + row) * d + c : g, ok);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// warp-level products: C[16 x 8] += A[16 x K] B[K x 8], one K step at a time
+// 3xTF32 splits and exp
 
 // cvt.rna.tf32.f32's rounding (to nearest, ties away from zero, 10 of the
 // 23 mantissa bits kept), in two integer operations that give the same bits
@@ -263,351 +189,6 @@ __device__ __forceinline__ float exp_f32(float x) { return exp2f(x * 1.442695040
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = tf32(x);
   lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);  // round to nearest even
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Fragments of lane (g, t) = (lane / 4, lane % 4), per storage type (bf16
-// alone now; the f32 kernels run on wgmma):
-//   load_a<L>(s, r0, k0):   A[m][k] = s[r0 + m][k0 + k]
-//   load_b_nk<L>(s, n0, k0): B[k][n] = s[n0 + n][k0 + k]
-//   load_b_kn<L>(s, k0, n0): B[k][n] = s[k0 + k][n0 + n]
-//   a_acc(c, j): the A operand of the j-th K step whose columns are the
-//       accumulators c[...] of 8 columns each
-//   mma_all<G>(c, a, b): c[j] += a b[j] for G tiles
-template <typename T>
-struct Mma;
-
-// bf16 storage: m16n8k16; a_acc rounds P and dS to bf16, as the reference.
-template <>
-struct Mma<__nv_bfloat16> {
-  static constexpr int kK = 16;
-  struct A {
-    uint32_t x[4];
-  };
-  struct B {
-    uint32_t x[2];
-  };
-  __device__ __forceinline__ static uint32_t word(const __nv_bfloat16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-  }
-  __device__ __forceinline__ static uint32_t pair(__nv_bfloat16 lo, __nv_bfloat16 hi) {
-    return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-  }
-  template <class L>
-  __device__ __forceinline__ static A load_a(const __nv_bfloat16* s, int r0, int k0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    return {{word(s + L::at(r0 + g, k0 + 2 * t)), word(s + L::at(r0 + g + 8, k0 + 2 * t)),
-             word(s + L::at(r0 + g, k0 + 2 * t + 8)), word(s + L::at(r0 + g + 8, k0 + 2 * t + 8))}};
-  }
-  template <class L>
-  __device__ __forceinline__ static B load_b_nk(const __nv_bfloat16* s, int n0, int k0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    return {{word(s + L::at(n0 + g, k0 + 2 * t)), word(s + L::at(n0 + g, k0 + 2 * t + 8))}};
-  }
-  template <class L>
-  __device__ __forceinline__ static B load_b_kn(const __nv_bfloat16* s, int k0, int n0) {
-    const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
-    const int r = k0 + 2 * t;
-    return {{pair(s[L::at(r, n0 + g)], s[L::at(r + 1, n0 + g)]),
-             pair(s[L::at(r + 8, n0 + g)], s[L::at(r + 9, n0 + g)])}};
-  }
-  template <int N>
-  __device__ __forceinline__ static A a_acc(const float (&c)[N][4], int j) {
-    return {{pack_bf16(c[2 * j][0], c[2 * j][1]), pack_bf16(c[2 * j][2], c[2 * j][3]),
-             pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]),
-             pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3])}};
-  }
-  template <int G>
-  __device__ __forceinline__ static void mma_all(float (*c)[4], const A& x, const B (&y)[G]) {
-#pragma unroll
-    for (int j = 0; j < G; ++j) mma_bf16(c[j], x.x, y[j].x[0], y[j].x[1]);
-  }
-};
-
-template <int N>
-__device__ __forceinline__ void zero(float (&c)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i][0] = c[i][1] = c[i][2] = c[i][3] = 0.f;
-}
-
-// c[16 x 8N] = A B^T over DP columns: A's 16 rows from r0 of `a`, B's 8N
-// rows from n0 = 0 of `b`, row-major tiles
-template <typename T, int DP, int N>
-__device__ __forceinline__ void rows_dot(float (&c)[N][4], const T* a, int r0, const T* b) {
-  using L = Smem<T, DP>;
-  using M = Mma<T>;
-  zero(c);
-#pragma unroll 2
-  for (int k0 = 0; k0 < DP; k0 += M::kK) {
-    const typename M::A x = M::template load_a<L>(a, r0, k0);
-    typename M::B y[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) y[j] = M::template load_b_nk<L>(b, 8 * j, k0);
-    M::template mma_all<N>(c, x, y);
-  }
-}
-
-// acc[16 x DP] += P b: P's 16 x 8N from the accumulators p, b's first 8N
-// rows, DP columns
-template <typename T, int DP, int N>
-__device__ __forceinline__ void acc_dot(float (&acc)[DP / 8][4], const float (&p)[N][4],
-                                        const T* b) {
-  using L = Smem<T, DP>;
-  using M = Mma<T>;
-#pragma unroll
-  for (int j = 0; j < 8 * N / M::kK; ++j) {
-    const typename M::A x = M::a_acc(p, j);
-    constexpr int G = DP / 8 < 4 ? DP / 8 : 4;
-#pragma unroll
-    for (int n0 = 0; n0 < DP / 8; n0 += G) {
-      typename M::B y[G];
-#pragma unroll
-      for (int n = 0; n < G; ++n) y[n] = M::template load_b_kn<L>(b, j * M::kK, 8 * (n0 + n));
-      M::template mma_all<G>(acc + n0, x, y);
-    }
-  }
-}
-
-// acc[r] += x[r] * scale over this lane's rows and columns of one warp's 16
-// rows [row0, row0 + 16) of a [BH, t, d] f32 tensor
-template <int DP>
-__device__ __forceinline__ void add_rows(float* out, const float (&x)[DP / 8][4], int64_t base,
-                                         int row0, int t, int d, float scale) {
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = row0 + g + 8 * r;
-    if (row >= t) continue;
-    float* o = out + (base + row) * d;
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const int c = 8 * n + 2 * t4;
-      if (c >= d) continue;
-      float2 y = *reinterpret_cast<float2*>(o + c);
-      y.x += x[n][2 * r] * scale;
-      y.y += x[n][2 * r + 1] * scale;
-      *reinterpret_cast<float2*>(o + c) = y;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// kernel B4 on bf16: mma.sync
-
-template <typename T, int DP>
-constexpr int dkdv_smem() {
-  return 2 * Smem<T, DP>::bytes(kRows) + kStages * 2 * Smem<T, DP>::bytes(kBwdStep) +
-         kStages * 2 * kBwdStep * (int)sizeof(float);
-}
-
-template <typename T, int DP>
-constexpr int dq_smem() {
-  return 2 * Smem<T, DP>::bytes(kRows) + kStages * 2 * Smem<T, DP>::bytes(kBwdStep);
-}
-
-// One block per (bh, 128-key tile): dK and dV of its keys over every 32-row
-// q tile that sees one of them, added into dk/dv once at the end.
-template <typename T, int DP>
-__device__ __forceinline__ void dkdv_mma(const BwdParams<T>& p, unsigned char* smem) {
-  using L = Smem<T, DP>;
-  constexpr int kFixed = kRows * L::kRowElems;
-  constexpr int kStep = kBwdStep * L::kRowElems;
-  constexpr int kN = kBwdStep / 8;
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kFixed;
-  T* qs = vs + kFixed;            // [stage][kBwdStep rows]
-  T* dos = qs + kStages * kStep;  // [stage][kBwdStep rows]
-  float* lses = reinterpret_cast<float*>(dos + kStages * kStep);  // [stage][kBwdStep]
-  float* dsums = lses + kStages * kBwdStep;
-
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * kRows;  // key tile 0 sees the most q tiles: first
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int wk0 = k0 + warp * 16;  // this warp's first key
-  const int n_q = (p.tq + kBwdStep - 1) / kBwdStep;
-  int first = 0;
-  if (p.causal) {
-    // query rows before `need` see none of this tile's keys
-    const int64_t need = p.k_off + k0 - p.q_off;
-    if (need >= p.tq) {
-      first = n_q;
-    } else if (need > 0) {
-      first = (int)(need / kBwdStep);
-    }
-  }
-  if (first >= n_q) return;  // a fully masked tile: dk/dv untouched
-
-  const int64_t kbase = (int64_t)bh * p.tk;
-  const int64_t qbase = (int64_t)bh * p.tq;
-  auto stage_q = [&](int it, int s) {
-    const int q0 = it * kBwdStep;
-    stage<T, DP, kBwdStep>(qs + s * kStep, p.q, qbase, p.tq, p.d, q0);
-    stage<T, DP, kBwdStep>(dos + s * kStep, p.dout, qbase, p.tq, p.d, q0);
-    const int i = threadIdx.x % kBwdStep;
-    const int row = q0 + i;
-    const bool ok = row < p.tq;
-    if (threadIdx.x < kBwdStep) {
-      cp_async4(lses + s * kBwdStep + i, ok ? p.lse + qbase + row : p.lse, ok);
-    } else if (threadIdx.x < 2 * kBwdStep) {
-      cp_async4(dsums + s * kBwdStep + i, ok ? p.dsum + qbase + row : p.dsum, ok);
-    }
-  };
-  stage<T, DP, kRows>(ks, p.k, kbase, p.tk, p.d, k0);
-  stage<T, DP, kRows>(vs, p.v, kbase, p.tk, p.d, k0);
-  stage_q(first, 0);
-  cp_async_commit();
-
-  float dk[DP / 8][4];
-  float dv[DP / 8][4];
-  zero(dk);
-  zero(dv);
-  for (int it = first; it < n_q; ++it) {
-    const int s = (it - first) % kStages;
-    if (it + 1 < n_q) stage_q(it + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();  // tile it has landed; only tile it + 1 may be in flight
-    __syncthreads();
-    T* qt = qs + s * kStep;
-    T* dot = dos + s * kStep;
-    const int q0 = it * kBwdStep;
-    const int64_t last_q = p.q_off + min(q0 + kBwdStep, p.tq) - 1;
-    if (wk0 < p.tk && (!p.causal || last_q >= p.k_off + wk0)) {
-      // S^T = K Q^T and dP^T = V dO^T, keys as rows
-      float st[kN][4];
-      float dpt[kN][4];
-      rows_dot<T, DP>(st, ks, warp * 16, qt);
-      rows_dot<T, DP>(dpt, vs, warp * 16, dot);
-      // every (key, row) pair live: no mask to evaluate
-      const bool full = q0 + kBwdStep <= p.tq && wk0 + 16 <= p.tk &&
-                        (!p.causal || p.q_off + q0 >= p.k_off + wk0 + 15);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int key = wk0 + g + 8 * (i >> 1);
-          const int col = 8 * j + 2 * t4 + (i & 1);
-          const int row = q0 + col;
-          const bool live = full || (row < p.tq && key < p.tk &&
-                                     (!p.causal || p.q_off + row >= p.k_off + key));
-          const float x = st[j][i] * p.scale;
-          // exact probabilities from the saved lse; the guard covers a row
-          // whose lse collapsed to NEG_INF
-          const float prob =
-              (!live || x <= kNegInf * 0.5f) ? 0.f : exp_f32(x - lses[s * kBwdStep + col]);
-          st[j][i] = prob;
-          dpt[j][i] = prob * (dpt[j][i] - dsums[s * kBwdStep + col]);
-        }
-      }
-      // dV += P^T dO; dK += dS^T Q
-      acc_dot<T, DP>(dv, st, dot);
-      acc_dot<T, DP>(dk, dpt, qt);
-    }
-    __syncthreads();  // the stage is free for tile it + 2
-  }
-  add_rows<DP>(p.dk, dk, kbase, wk0, p.tk, p.d, p.scale);
-  add_rows<DP>(p.dv, dv, kbase, wk0, p.tk, p.d, 1.f);
-}
-
-// One block per (bh, 128-row q tile): dQ of its rows over every 32-key tile
-// it sees, added into dq once at the end.
-template <typename T, int DP>
-__device__ __forceinline__ void dq_mma(const BwdParams<T>& p, unsigned char* smem) {
-  using L = Smem<T, DP>;
-  constexpr int kFixed = kRows * L::kRowElems;
-  constexpr int kStep = kBwdStep * L::kRowElems;
-  constexpr int kN = kBwdStep / 8;
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kFixed;
-  T* ks = dos + kFixed;          // [stage][kBwdStep rows]
-  T* vs = ks + kStages * kStep;  // [stage][kBwdStep rows]
-
-  const int bh = blockIdx.x;
-  // the causal q tiles see more keys the later they are: last tiles first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kRows;
-  const int warp = threadIdx.x / 32;
-  const int g = (threadIdx.x % 32) / 4, t4 = threadIdx.x % 4;
-  const int wq0 = q0 + warp * 16;
-  int n_k = (p.tk + kBwdStep - 1) / kBwdStep;
-  if (p.causal) {
-    // the last key any row of this tile sees
-    const int last_row = min(q0 + kRows, p.tq) - 1;
-    const int64_t last_key = p.q_off + last_row - p.k_off;
-    const int64_t need = last_key < 0 ? 0 : last_key / kBwdStep + 1;
-    if (need < n_k) n_k = (int)need;
-  }
-  if (n_k == 0) return;  // every key past every query: dq untouched
-
-  const int64_t kbase = (int64_t)bh * p.tk;
-  const int64_t qbase = (int64_t)bh * p.tq;
-  auto stage_k = [&](int jt, int s) {
-    stage<T, DP, kBwdStep>(ks + s * kStep, p.k, kbase, p.tk, p.d, jt * kBwdStep);
-    stage<T, DP, kBwdStep>(vs + s * kStep, p.v, kbase, p.tk, p.d, jt * kBwdStep);
-  };
-  stage<T, DP, kRows>(qs, p.q, qbase, p.tq, p.d, q0);
-  stage<T, DP, kRows>(dos, p.dout, qbase, p.tq, p.d, q0);
-  stage_k(0, 0);
-  cp_async_commit();
-
-  float lse[2];
-  float dsum[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int row = wq0 + g + 8 * r;
-    const bool ok = row < p.tq;
-    lse[r] = ok ? p.lse[qbase + row] : 0.f;
-    dsum[r] = ok ? p.dsum[qbase + row] : 0.f;
-  }
-  float dq[DP / 8][4];
-  zero(dq);
-  const int64_t last_q = p.q_off + min(wq0 + 16, p.tq) - 1;  // this warp's last row
-  for (int jt = 0; jt < n_k; ++jt) {
-    const int s = jt % kStages;
-    if (jt + 1 < n_k) stage_k(jt + 1, s ^ 1);
-    cp_async_commit();
-    cp_async_wait_1();
-    __syncthreads();
-    T* kt = ks + s * kStep;
-    T* vt = vs + s * kStep;
-    const int kt0 = jt * kBwdStep;
-    if (wq0 < p.tq && (!p.causal || last_q >= p.k_off + kt0)) {
-      float sc[kN][4];
-      float ds[kN][4];
-      rows_dot<T, DP>(sc, qs, warp * 16, kt);
-      rows_dot<T, DP>(ds, dos, warp * 16, vt);
-      const bool full = wq0 + 16 <= p.tq && kt0 + kBwdStep <= p.tk &&
-                        (!p.causal || p.q_off + wq0 >= p.k_off + kt0 + kBwdStep - 1);
-#pragma unroll
-      for (int j = 0; j < kN; ++j) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = i >> 1;
-          const int row = wq0 + g + 8 * r;
-          const int key = kt0 + 8 * j + 2 * t4 + (i & 1);
-          const bool live = full || (row < p.tq && key < p.tk &&
-                                     (!p.causal || p.q_off + row >= p.k_off + key));
-          const float x = sc[j][i] * p.scale;
-          const float prob = (!live || x <= kNegInf * 0.5f) ? 0.f : exp_f32(x - lse[r]);
-          ds[j][i] = prob * (ds[j][i] - dsum[r]);
-        }
-      }
-      acc_dot<T, DP>(dq, ds, kt);  // dQ += dS K
-    }
-    __syncthreads();
-  }
-  add_rows<DP>(p.dq, dq, qbase, wq0, p.tq, p.d, p.scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -1107,7 +688,7 @@ __device__ __forceinline__ void flush(float (&acc)[NT][32], float* out, int64_t 
 // dP^T = V dO^T, dS^T = P^T (dP^T - D) with P^T from warpgroup 0, then
 // dK^T += Q^T dS^T; warpgroup 2 produces.
 template <int DP, bool kBand>
-__device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams<float>& p,
+__device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams& p,
                                          unsigned char* raw) {
   using L = Wg<DP>;
   constexpr int kTiles = DP / 64;  // m tiles of dK^T and dV^T
@@ -1228,7 +809,7 @@ __device__ __forceinline__ void dkdv_f32(const Maps& maps, const BwdParams<float
 // P; warpgroup 1 dP = dO V^T and dS = P (dP - D); then warpgroup m runs m
 // tile m of dQ^T += K^T dS^T; warpgroup 2 produces.
 template <int DP, bool kBand>
-__device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>& p,
+__device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams& p,
                                        unsigned char* raw) {
   using L = Wg<DP>;
   constexpr int kTiles = DP / 64;  // m tiles of dQ^T
@@ -1328,48 +909,40 @@ __device__ __forceinline__ void dq_f32(const Maps& maps, const BwdParams<float>&
 }
 
 // ---------------------------------------------------------------------------
-// kernel B4's two kernels: f32 storage on wgmma, bf16 on mma.sync (the maps
-// are read only in f32).  The two routes share nothing but these templates,
-// which exist for their names alone: the benchmark finds B4 f32 in a trace
-// by `dkdv_kernel<float` and `dq_kernel<float` (benchmark/readings.py,
-// held to this file by tests/test_torch_flash_backward.py).  Once the
-// benchmark matches `dkdv_f32`/`dq_f32` itself, each route can take a
-// __global__ of its own, with its own thread count and no Maps in bf16.
+// kernel B4's two kernels.  The benchmark finds B4 f32 in a device trace by
+// their demangled names, `dkdv_kernel<float` and `dq_kernel<float`
+// (benchmark/readings.py, held to this file by
+// tests/test_torch_flash_backward.py): hence a storage-type parameter that
+// only float takes.
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(sizeof(T) == 4 ? kConsumers + 128 : kThreads, 1)
-    dkdv_kernel(const __grid_constant__ Maps maps, const BwdParams<T> p) {
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    dkdv_kernel(const __grid_constant__ Maps maps, const BwdParams p) {
+  static_assert(std::is_same<T, float>::value, "B4 here is f32; bf16 is in flash_attention.cu");
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (sizeof(T) == 4) {
-    dkdv_f32<DP, false>(maps, p, smem);
-  } else {
-    dkdv_mma<T, DP>(p, smem);
-  }
+  dkdv_f32<DP, false>(maps, p, smem);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(sizeof(T) == 4 ? kConsumers + 128 : kThreads, 1)
-    dq_kernel(const __grid_constant__ Maps maps, const BwdParams<T> p) {
+__global__ void __launch_bounds__(kConsumers + 128, 1)
+    dq_kernel(const __grid_constant__ Maps maps, const BwdParams p) {
+  static_assert(std::is_same<T, float>::value, "B4 here is f32; bf16 is in flash_attention.cu");
   extern __shared__ __align__(128) unsigned char smem[];
-  if constexpr (sizeof(T) == 4) {
-    dq_f32<DP, false>(maps, p, smem);
-  } else {
-    dq_mma<T, DP>(p, smem);
-  }
+  dq_f32<DP, false>(maps, p, smem);
 }
 
 // B4 f32 with a sliding window: kernels of their own, so that the causal
 // kernels above stay as they were (the benchmark reads these names too).
 template <int DP>
 __global__ void __launch_bounds__(kConsumers + 128, 1)
-    dkdv_band_kernel(const __grid_constant__ Maps maps, const BwdParams<float> p) {
+    dkdv_band_kernel(const __grid_constant__ Maps maps, const BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   dkdv_f32<DP, true>(maps, p, smem);
 }
 
 template <int DP>
 __global__ void __launch_bounds__(kConsumers + 128, 1)
-    dq_band_kernel(const __grid_constant__ Maps maps, const BwdParams<float> p) {
+    dq_band_kernel(const __grid_constant__ Maps maps, const BwdParams p) {
   extern __shared__ __align__(128) unsigned char smem[];
   dq_f32<DP, true>(maps, p, smem);
 }
@@ -1404,7 +977,7 @@ __global__ void __launch_bounds__(kConsumers + 128, 1)
 // The consumers are not made to take turns on the tensor cores: a turn
 // barrier around each one's products (FA3's ping-pong) changed nothing at
 // the train hop and cost 2 % at the long hop and 16 % at the windowed one.
-// Measured on an H100 SXM at 700 W: the train hop 1.51 ms (the `mma.sync`
+// Measured on an H100 SXM at 700 W: the train hop 1.51 ms (the warp-level
 // fold it replaced: 3.02 in the same call), 0.55 of its bound; the long hop
 // 85.0 ms (172.1), 0.63; the windowed hop (256, 4096, 128), W 128, 1.71 ms
 // (2.57).  A consumer's step of the heaviest block (clock64 stamps) takes
@@ -1824,7 +1397,7 @@ int set_smem(Kernel kernel, int bytes) {
 int tiles(int t, int rows) { return (t + rows - 1) / rows; }
 
 template <int DP>
-int launch_backward_f32(const Maps& maps, const BwdParams<float>& p, cudaStream_t stream) {
+int launch_backward_f32(const Maps& maps, const BwdParams& p, cudaStream_t stream) {
   constexpr int kSmem = Wg<DP>::kSmem;
   static_assert(kSmem <= 232448, "a block's shared memory");
   const dim3 dkdv_grid(p.bh, tiles(p.tk, kFixedRows)), dq_grid(p.bh, tiles(p.tq, kFixedRows));
@@ -1850,24 +1423,6 @@ int launch_backward_f32(const Maps& maps, const BwdParams<float>& p, cudaStream_
   return (int)cudaGetLastError();
 }
 
-template <int DP>
-int launch_backward_mma(const BwdParams<__nv_bfloat16>& p, cudaStream_t stream) {
-  using T = __nv_bfloat16;
-  constexpr int kDkdvSmem = dkdv_smem<T, DP>();
-  constexpr int kDqSmem = dq_smem<T, DP>();
-  static_assert(kDkdvSmem <= 232448 && kDqSmem <= 232448, "a block's shared memory");
-  int err = set_smem(dkdv_kernel<T, DP>, kDkdvSmem);
-  if (err != 0) return err;
-  err = set_smem(dq_kernel<T, DP>, kDqSmem);
-  if (err != 0) return err;
-  const Maps none{};  // bf16 reads its tiles with cp.async
-  dkdv_kernel<T, DP><<<dim3(p.bh, tiles(p.tk, kRows)), kThreads, kDkdvSmem, stream>>>(none, p);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  dq_kernel<T, DP><<<dim3(p.bh, tiles(p.tq, kRows)), kThreads, kDqSmem, stream>>>(none, p);
-  return (int)cudaGetLastError();
-}
-
 // A 3-D map over [BH, T, D] f32 in boxes of 32 rows x 32 columns, 128-byte
 // swizzle; rows past T and columns past D read as zeros.
 CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int t, int d) {
@@ -1878,31 +1433,6 @@ CUresult encode(EncodeTiled fn, CUtensorMap* map, const void* ptr, int bh, int t
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// f32: 999 when the driver has no cuTensorMapEncodeTiled, 1000 + the
-// CUresult when a map cannot be encoded
-int backward_f32(const BwdParams<float>& p, cudaStream_t stream) {
-  if (p.tq > 65535 * kFixedRows || p.tk > 65535 * kFixedRows) return (int)cudaErrorInvalidValue;
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return 999;
-  Maps maps;
-  CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
-  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
-  const int ts[4] = {p.tq, p.tk, p.tk, p.tq};
-  for (int i = 0; i < 4; ++i) {
-    const CUresult res = encode(fn, out[i], ptrs[i], p.bh, ts[i], p.d);
-    if (res != CUDA_SUCCESS) return 1000 + (int)res;
-  }
-  if (p.d <= 64) return launch_backward_f32<64>(maps, p, stream);
-  return launch_backward_f32<128>(maps, p, stream);
-}
-
-int backward_bf16(const BwdParams<__nv_bfloat16>& p, cudaStream_t stream) {
-  if (p.d <= 16) return launch_backward_mma<16>(p, stream);
-  if (p.d <= 32) return launch_backward_mma<32>(p, stream);
-  if (p.d <= 64) return launch_backward_mma<64>(p, stream);
-  return launch_backward_mma<128>(p, stream);
 }
 
 template <int DP>
@@ -1936,34 +1466,51 @@ int band(int causal, int window) {
   return causal && window > 0 && window < kMaxWindow ? window : kNoWindow;
 }
 
-template <typename T>
-int backward(const BwdParams<T>& p, cudaStream_t stream) {
+// 999 when the driver has no cuTensorMapEncodeTiled, 1000 + the CUresult
+// when a map cannot be encoded
+int backward(const BwdParams& p, cudaStream_t stream) {
   if (bad_shape(p.bh, p.tq, p.tk, p.d)) return (int)cudaErrorInvalidValue;
-  // bf16's mma.sync kernels have no band
-  if (sizeof(T) != 4 && p.window != kNoWindow) return (int)cudaErrorInvalidValue;
   if (misaligned(p.q, 16) || misaligned(p.k, 16) || misaligned(p.v, 16) ||
       misaligned(p.dout, 16) || misaligned(p.lse, 4) || misaligned(p.dsum, 4) ||
       misaligned(p.dq, 8) || misaligned(p.dk, 8) || misaligned(p.dv, 8)) {
     return (int)cudaErrorMisalignedAddress;
   }
   if (p.bh == 0 || p.tq == 0 || p.tk == 0) return (int)cudaSuccess;
-  if constexpr (sizeof(T) == 4) {
-    return backward_f32(p, stream);
-  } else {
-    return backward_bf16(p, stream);
+  if (p.tq > 65535 * kFixedRows || p.tk > 65535 * kFixedRows) return (int)cudaErrorInvalidValue;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return 999;
+  Maps maps;
+  CUtensorMap* out[4] = {&maps.q, &maps.k, &maps.v, &maps.dout};
+  const void* ptrs[4] = {p.q, p.k, p.v, p.dout};
+  const int ts[4] = {p.tq, p.tk, p.tk, p.tq};
+  for (int i = 0; i < 4; ++i) {
+    const CUresult res = encode(fn, out[i], ptrs[i], p.bh, ts[i], p.d);
+    if (res != CUDA_SUCCESS) return 1000 + (int)res;
   }
+  if (p.d <= 64) return launch_backward_f32<64>(maps, p, stream);
+  return launch_backward_f32<128>(maps, p, stream);
 }
 
-template <typename T>
-int backward_entry(const void* q, const void* k, const void* v, const void* dout,
-                   const float* lse, const float* dsum, float* dq, float* dk, float* dv, int bh,
-                   int tq, int tk, int d, int64_t q_off, int64_t k_off, int causal, int window,
-                   float scale, cudaStream_t stream) {
-  BwdParams<T> p{};
-  p.q = static_cast<const T*>(q);
-  p.k = static_cast<const T*>(k);
-  p.v = static_cast<const T*>(v);
-  p.dout = static_cast<const T*>(dout);
+}  // namespace
+
+// One ring hop's backward: adds this hop's dq [BH, Tq, D], dk and dv [BH,
+// Tk, D] (in place) from q, dout [BH, Tq, D] and k, v [BH, Tk, D], lse and
+// dsum [BH, Tq]; all f32 and contiguous; D a multiple of 8 up to 128;
+// q/k/v/dout 16-byte aligned.  `window` > 0 on a causal hop keeps only keys
+// within window - 1 positions before a query (0 for none).  Two kernels on
+// `stream`, no synchronize; returns the first failing launch's cudaError_t
+// (0 on success).
+extern "C" int tpu_flash_block_backward_f32(const void* q, const void* k, const void* v,
+                                            const void* dout, const float* lse,
+                                            const float* dsum, float* dq, float* dk, float* dv,
+                                            int bh, int tq, int tk, int d, int64_t q_off,
+                                            int64_t k_off, int causal, int window, float scale,
+                                            cudaStream_t stream) {
+  BwdParams p{};
+  p.q = static_cast<const float*>(q);
+  p.k = static_cast<const float*>(k);
+  p.v = static_cast<const float*>(v);
+  p.dout = static_cast<const float*>(dout);
   p.lse = lse;
   p.dsum = dsum;
   p.dq = dq;
@@ -1981,51 +1528,11 @@ int backward_entry(const void* q, const void* k, const void* v, const void* dout
   return backward(p, stream);
 }
 
-int backward_smem_bf16(int d, int which) {
-  using T = __nv_bfloat16;
-  const int dp = d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : 128;
-  switch (dp) {
-    case 16: return which == 0 ? dkdv_smem<T, 16>() : dq_smem<T, 16>();
-    case 32: return which == 0 ? dkdv_smem<T, 32>() : dq_smem<T, 32>();
-    case 64: return which == 0 ? dkdv_smem<T, 64>() : dq_smem<T, 64>();
-    default: return which == 0 ? dkdv_smem<T, 128>() : dq_smem<T, 128>();
-  }
-}
-
-}  // namespace
-
-// One ring hop's backward: adds this hop's dq [BH, Tq, D], dk and dv [BH,
-// Tk, D] (f32, in place) from q, dout [BH, Tq, D] and k, v [BH, Tk, D] (f32,
-// or bf16 in the _bf16 entry), lse and dsum [BH, Tq] f32; all contiguous; D
-// a multiple of 8 up to 128; q/k/v/dout 16-byte aligned.  `window` > 0 on a
-// causal hop keeps only keys within window - 1 positions before a query
-// (f32 only; 0 for none).  Two kernels on `stream`, no synchronize; returns
-// the first failing launch's cudaError_t (0 on success).
-extern "C" int tpu_flash_block_backward_f32(const void* q, const void* k, const void* v,
-                                            const void* dout, const float* lse,
-                                            const float* dsum, float* dq, float* dk, float* dv,
-                                            int bh, int tq, int tk, int d, int64_t q_off,
-                                            int64_t k_off, int causal, int window, float scale,
-                                            cudaStream_t stream) {
-  return backward_entry<float>(q, k, v, dout, lse, dsum, dq, dk, dv, bh, tq, tk, d, q_off, k_off,
-                               causal, window, scale, stream);
-}
-
-extern "C" int tpu_flash_block_backward_bf16(const void* q, const void* k, const void* v,
-                                             const void* dout, const float* lse,
-                                             const float* dsum, float* dq, float* dk, float* dv,
-                                             int bh, int tq, int tk, int d, int64_t q_off,
-                                             int64_t k_off, int causal, int window,
-                                             float scale, cudaStream_t stream) {
-  return backward_entry<__nv_bfloat16>(q, k, v, dout, lse, dsum, dq, dk, dv, bh, tq, tk, d, q_off,
-                                       k_off, causal, window, scale, stream);
-}
-
 // Kernel B3 on f32: folds k, v [BH, Tk, D] into the online-softmax state of
 // q [BH, Tq, D]: m, l [BH, Tq] and o [BH, Tq, D], updated in place; all f32
 // and contiguous, q/k/v 16-byte aligned.  The signature of
 // tpu_flash_block_update_bf16 with the sliding window after `causal`, as in
-// the backward's entries.
+// the backward's entry.
 extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const void* v, float* m,
                                           float* l, float* o, int bh, int tq, int tk, int d,
                                           int64_t q_off, int64_t k_off, int causal, int window,
@@ -2065,12 +1572,10 @@ extern "C" int tpu_flash_block_update_f32(const void* q, const void* k, const vo
   return launch_fold<128>(maps, p, stream);
 }
 
-// Dynamic shared memory a block of each kernel takes at head dim d:
-// kernel 0 the dk/dv kernel, 1 the dq kernel (bf16 storage when bf16 is
-// non-zero), 2 the f32 fold.
-extern "C" int tpu_flash_train_smem_bytes(int kernel, int d, int bf16) {
+// Dynamic shared memory a block of each kernel takes at head dim d: kernel
+// 0 the dk/dv kernel, 1 the dq kernel, 2 the fold.
+extern "C" int tpu_flash_train_smem_bytes(int kernel, int d) {
   if (d <= 0 || d > 128) return -1;
   if (kernel == 2) return d <= 64 ? Fold<64>::kSmem : Fold<128>::kSmem;
-  if (bf16) return backward_smem_bf16(d, kernel);
-  return d <= 64 ? Wg<64>::kSmem : Wg<128>::kSmem;  // both f32 kernels
+  return d <= 64 ? Wg<64>::kSmem : Wg<128>::kSmem;  // both B4 kernels
 }

@@ -13,15 +13,9 @@ blocks as fit on the SMs at once (``grid_blocks``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from tpu_operator_torch.kernels import _build
-
-# launches of the CUDA kernel in this process: a run shows it went through
-# the kernel by reading this before and after (chip_smoke.py sets it to 0)
-launches = 0
 
 MAX_TILE_BYTES = 32 * 1024   # 16 rows of 512 f32: a slot of the shared-memory ring
 SMEM_BYTES = 227 * 1024      # shared memory a Hopper block can opt in to
@@ -84,18 +78,6 @@ def _check(x: torch.Tensor, iters: int, chunk_rows: int, slots: int) -> None:
         raise ValueError("x is not 16-byte aligned: bulk copies need 16-byte addresses")
 
 
-def _bind() -> ctypes.CDLL:
-    lib, _ = _build.library("dma_pipeline")
-    fn = lib.tpu_dma_pipeline_copy
-    if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def dma_pipeline_copy(x: torch.Tensor, iters: int, chunk_rows: int, slots: int) -> torch.Tensor:
     """Copy ``x`` through the DMA pipeline ``iters`` times; returns the copy
     (bit-identical to ``x``).  Through the CUDA kernel for a tensor on a
@@ -113,18 +95,10 @@ def dma_pipeline_copy(x: torch.Tensor, iters: int, chunk_rows: int, slots: int) 
 def _copy_on(x: torch.Tensor, iters: int, tile: int, slots: int) -> torch.Tensor:
     """Launch the kernel with this tile and ring on a checked CUDA tensor
     (``chip_smoke.py`` times tile sizes with it)."""
-    global launches
-    lib = _bind()
     out = torch.empty_like(x, memory_format=torch.contiguous_format)
     nbytes = x.numel() * x.element_size()
     blocks = grid_blocks(nbytes, tile, slots,
                          torch.cuda.get_device_properties(x.device).multi_processor_count)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.tpu_dma_pipeline_copy(
-            x.data_ptr(), out.data_ptr(), nbytes, tile, slots, iters, blocks, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"dma_pipeline kernel launch failed: cudaError {rc}")
-    launches += 1
+    _build.launch("tpu_dma_pipeline_copy", x.device, x.data_ptr(), out.data_ptr(), nbytes, tile,
+                  slots, iters, blocks)
     return out

@@ -38,7 +38,6 @@ its kernel for tensors on a card.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -48,14 +47,11 @@ from tpu_operator_torch.kernels import _build
 NEG_INF = -1e30  # large-negative instead of -inf: exp() of a fully masked
 # row must give 0 through the guard, never nan from (-inf) - (-inf)
 
-# launches of each CUDA kernel in this process: a run shows it went through
-# the kernel by reading these before and after (chip_smoke.py sets them to 0)
-forward_launches = 0           # every path of the forward
-forward_path_launches = {"wgmma": 0, "split": 0, "mma": 0, "f32": 0, "paged_f32": 0}
-FORWARD_PATHS = ("wgmma", "split", "mma", "f32")  # what ``_flash_forward_on`` takes
-block_update_launches = 0      # the bf16 entry
-block_update_f32_launches = 0  # the f32 entry
-block_update_f32_path_launches = {"wgmma": 0}  # the f32 entry, by the body that ran
+# the forward's paths (what ``_flash_forward_on`` takes) and the C entry of each
+FORWARD_ENTRIES = {"wgmma": "tpu_flash_forward_wgmma_bf16",
+                   "split": "tpu_flash_forward_split_bf16",
+                   "mma": "tpu_flash_forward_bf16",
+                   "f32": "tpu_flash_forward_f32"}
 
 MAX_HEAD_DIM = 128
 
@@ -398,39 +394,6 @@ def _check_device(*tensors) -> None:
         raise ValueError("flash kernels take 16-byte-aligned tensors")
 
 
-_P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-# q, k, v, <state pointers>, bh, tq, tk, d, q_off, k_off, causal, scale, stream
-_FORWARD_ARGS = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64, _I, _F, _P]
-_UPDATE_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I64, _I64, _I, _F, _P]
-_ENTRIES = {  # source -> {entry: argtypes}
-    "flash_attention": {
-        "tpu_flash_forward_bf16": _FORWARD_ARGS,
-        # the forward's, plus the f32 scratch after lse and n_splits before the stream
-        "tpu_flash_forward_split_bf16": [*_FORWARD_ARGS[:5], _P, *_FORWARD_ARGS[5:13], _I, _P],
-        "tpu_flash_block_update_bf16": _UPDATE_ARGS,
-    },
-    "flash_forward_sm90": {"tpu_flash_forward_wgmma_bf16": _FORWARD_ARGS},
-    "flash_forward_f32": {
-        "tpu_flash_forward_f32": _FORWARD_ARGS,
-        # q, k_pool, v_pool, block_tables, lengths, out, lse, part, requests, heads, d,
-        # block_tokens, width, max_splits, split_pages, scale, stream
-        "tpu_flash_paged_f32": [_P] * 8 + [_I] * 7 + [_F, _P],
-    },
-    # the bf16 update's, with the sliding window after ``causal``
-    "flash_backward": {"tpu_flash_block_update_f32": [*_UPDATE_ARGS[:13], _I, *_UPDATE_ARGS[13:]]},
-}
-
-
-def _bind(source: str = "flash_attention") -> ctypes.CDLL:
-    lib, _ = _build.library(source)
-    for name, argtypes in _ENTRIES[source].items():
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-    return lib
-
-
 _n_sm: dict = {}
 
 
@@ -479,8 +442,8 @@ def _flash_forward_on(path, q, k, v, causal=True, q_off=0, k_off=0, n_splits=Non
     if not _on_card(q):
         raise ValueError("_flash_forward_on launches a kernel: give it tensors on a card")
     _check_device(q, k, v)
-    if path not in FORWARD_PATHS:
-        raise ValueError(f"no forward path {path!r}: one of {sorted(FORWARD_PATHS)}")
+    if path not in FORWARD_ENTRIES:
+        raise ValueError(f"no forward path {path!r}: one of {sorted(FORWARD_ENTRIES)}")
     if n_splits is None:
         n_tiles = -(-_live_keys(q.shape[1], k.shape[1], causal, q_off, k_off) // SPLIT_TILE)
         n_splits = _split_count(q.shape[0], q.shape[1], n_tiles, _sm_count(q.device))
@@ -490,33 +453,19 @@ def _flash_forward_on(path, q, k, v, causal=True, q_off=0, k_off=0, n_splits=Non
 def _launch_forward(path, q, k, v, causal, q_off, k_off, n_splits):
     """Launch the forward's ``path`` on checked tensors on a card; raises
     when the path does not take the shape or the launch fails."""
-    global forward_launches
     bh, tq, d = q.shape
     tk = k.shape[1]
     if path == "wgmma" and d not in WGMMA_HEAD_DIMS:
         raise ValueError(f"head dim {d}: the wgmma kernel takes {WGMMA_HEAD_DIMS}")
     out = torch.empty_like(q)
     lse = torch.empty((bh, tq), dtype=torch.float32, device=q.device)
-    common = (bh, tq, tk, d, int(q_off), int(k_off), int(bool(causal)), 1.0 / math.sqrt(d))
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr())
-        if path == "f32":
-            rc = _bind("flash_forward_f32").tpu_flash_forward_f32(*ptrs, *common, stream)
-        elif path == "wgmma":
-            rc = _bind("flash_forward_sm90").tpu_flash_forward_wgmma_bf16(*ptrs, *common, stream)
-        elif path == "split":
-            # one partial (m, l, acc[D]) per (split, bh, row), f32
-            part = torch.empty(n_splits * bh * tq * (d + 2), dtype=torch.float32,
-                               device=q.device)
-            rc = _bind().tpu_flash_forward_split_bf16(*ptrs, part.data_ptr(), *common, n_splits,
-                                                      stream)
-        else:
-            rc = _bind().tpu_flash_forward_bf16(*ptrs, *common, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash forward kernel ({path}) launch failed: cudaError {rc}")
-    forward_launches += 1
-    forward_path_launches[path] += 1
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            bh, tq, tk, d, int(q_off), int(k_off), int(bool(causal)), 1.0 / math.sqrt(d)]
+    if path == "split":
+        # one partial (m, l, acc[D]) per (split, bh, row), f32
+        part = torch.empty(n_splits * bh * tq * (d + 2), dtype=torch.float32, device=q.device)
+        args = [*args[:5], part.data_ptr(), *args[5:], n_splits]
+    _build.launch(FORWARD_ENTRIES[path], q.device, *args)
     return out, lse
 
 
@@ -564,7 +513,6 @@ def flash_attention_paged(q, k_pool, v_pool, block_tables, lengths):
     ``PAGED_SPLIT_PAGES`` pages), on the current stream, not synchronized;
     the lengths stay on the card (a length past ``width x block_tokens`` is
     cut there).  Tensors on the CPU take the plain version."""
-    global forward_launches
     _check_paged(q, k_pool, v_pool, block_tables, lengths)
     if not _on_card(q):
         return flash_attention_paged_reference(q, k_pool, v_pool, block_tables, lengths)
@@ -577,18 +525,10 @@ def flash_attention_paged(q, k_pool, v_pool, block_tables, lengths):
     # one partial (acc[D], m, l) per (row, split), f32
     part = (torch.empty(r * h * max_splits * (d + 2), dtype=torch.float32, device=q.device)
             if max_splits > 1 else None)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _bind("flash_forward_f32").tpu_flash_paged_f32(
-            q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-            lengths.data_ptr(), out.data_ptr(), lse.data_ptr(),
-            part.data_ptr() if part is not None else None, r, h, d, bt, width, max_splits,
-            PAGED_SPLIT_PAGES, 1.0 / math.sqrt(d), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"paged flash forward kernel launch failed: cudaError {rc}")
-    forward_launches += 1
-    forward_path_launches["paged_f32"] += 1
+    _build.launch("tpu_flash_paged_f32", q.device, q.data_ptr(), k_pool.data_ptr(),
+                  v_pool.data_ptr(), block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+                  lse.data_ptr(), part.data_ptr() if part is not None else None, r, h, d, bt,
+                  width, max_splits, PAGED_SPLIT_PAGES, 1.0 / math.sqrt(d))
     return out, lse
 
 
@@ -612,7 +552,6 @@ def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal, window=0):
     and returns them.  On a card the CUDA kernel of q's dtype (current
     stream, not synchronized); on the CPU the plain version, copied into
     the state."""
-    global block_update_launches, block_update_f32_launches
     _check_qkv(q, k, v, dtypes=(torch.bfloat16, torch.float32))
     window = _check_window(causal, window)
     bh, tq, d = q.shape
@@ -632,20 +571,8 @@ def flash_block_update(q, k, v, q_off, k_off, m, l, o, causal, window=0):
     if window and not f32:
         raise ValueError("the bf16 block update has no sliding window")
     band = (window,) if f32 else ()
-    lib = _bind("flash_backward" if f32 else "flash_attention")
-    entry = lib.tpu_flash_block_update_f32 if f32 else lib.tpu_flash_block_update_bf16
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = entry(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(), o.data_ptr(),
-            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)), *band,
-            1.0 / math.sqrt(d), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash block update kernel launch failed: cudaError {rc}")
-    if f32:
-        block_update_f32_launches += 1
-        block_update_f32_path_launches["wgmma"] += 1
-    else:
-        block_update_launches += 1
+    _build.launch("tpu_flash_block_update_f32" if f32 else "tpu_flash_block_update_bf16",
+                  q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), m.data_ptr(), l.data_ptr(),
+                  o.data_ptr(), bh, tq, k.shape[1], d, int(q_off), int(k_off),
+                  int(bool(causal)), *band, 1.0 / math.sqrt(d))
     return m, l, o

@@ -1,5 +1,6 @@
 """The FlashAttention-2 block backward of one ring hop (``csrc/
-flash_backward.cu``) and its plain PyTorch version.
+flash_backward.cu`` for f32, ``csrc/flash_attention.cu`` for bf16) and its
+plain PyTorch version.
 
 ``flash_block_backward`` replaces the Pallas TPU kernel
 ``_flash_block_bwd_kernel`` / ``flash_block_backward``
@@ -9,29 +10,30 @@ probabilities from the forward's saved log-sum-exp and adds the hop's dq, dk
 and dv into the travelling f32 accumulators, in place.  q, k, v and dO are
 f32 (the transformer step's) or bf16; lse, dsum and the accumulators f32.
 
-On a card it is two kernels without atomics, ``dkdv_kernel`` (a block per
-64 keys in f32, 128 in bf16, walking 32-row q tiles) and ``dq_kernel`` (a
-block per 64 query rows, or 128, walking 32-key tiles), so two launches on
-the same inputs give the same bits.  f32 runs every product as 3xTF32 (hi = rna(x), lo = rna(x - hi);
-lo hi, hi lo, then hi hi; never one TF32 pass) on Hopper's warpgroup
-``wgmma``, bound by the tensor cores' TF32 rate: a producer warpgroup brings
-the tiles by TMA into a two-stage ring and splits them, two warpgroups run
-the products.  tf32 ``wgmma`` reads both operands K-major only, so the
-products over the walked rows run transposed (dV^T += dO^T P^T and the like)
-with the walked tile transposed into registers as A, rather than keeping
-transposed copies in shared memory: at D 128 a block holds 225 KB of the
-card's 227 (fixed tiles 64 KB, the ring and its lo parts 128 KB, the
-operands made from registers 32 KB), and a thread of the products up to 232
-registers (accumulators 64, the fixed tile's hi parts 64).  The tensor
-cores' f32 sums truncate, and a causal dk/dv row at T 32768 sums thousands
-of shrinking terms, so every 32 walked tiles the accumulators are added into
-dq/dk/dv and start again.  bf16 runs ``mma.sync``.  A wrapper takes the plain version for tensors on the CPU and
+On a card it is two kernels without atomics, one over key tiles for dk and
+dv, walking 32-row q tiles, one over query tiles for dq, walking 32-key
+tiles, so two launches on the same inputs give the same bits.  f32
+(``dkdv_kernel``, ``dq_kernel``: blocks of 64 rows) runs every product as
+3xTF32 (hi = rna(x), lo = rna(x - hi); lo hi, hi lo, then hi hi; never one
+TF32 pass) on Hopper's warpgroup ``wgmma``, bound by the tensor cores' TF32
+rate: a producer warpgroup brings the tiles by TMA into a two-stage ring and
+splits them, two warpgroups run the products.  tf32 ``wgmma`` reads both
+operands K-major only, so the products over the walked rows run transposed
+(dV^T += dO^T P^T and the like) with the walked tile transposed into
+registers as A, rather than keeping transposed copies in shared memory: at
+D 128 a block holds 225 KB of the card's 227 (fixed tiles 64 KB, the ring
+and its lo parts 128 KB, the operands made from registers 32 KB), and a
+thread of the products up to 232 registers (accumulators 64, the fixed
+tile's hi parts 64).  The tensor cores' f32 sums truncate, and a causal
+dk/dv row at T 32768 sums thousands of shrinking terms, so every 32 walked
+tiles the accumulators are added into dq/dk/dv and start again.  bf16
+(``dkdv_mma_kernel``, ``dq_mma_kernel``: blocks of 128 rows) runs
+``mma.sync``.  A wrapper takes the plain version for tensors on the CPU and
 launches the kernels for tensors on a card.
 """
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -46,11 +48,6 @@ from tpu_operator_torch.kernels.flash_attention import (
     _q_tile,
     visible,
 )
-
-# launches of the CUDA kernel pair in this process: a run shows it went
-# through the kernel by reading this before and after (chip_smoke.py sets it
-# to 0)
-backward_launches = 0
 
 # the reference's q-tile budget for the backward, tighter than the forward's
 # (``ring_attention.py:643-646``): three score-sized f32 temporaries live at once
@@ -92,21 +89,6 @@ def flash_block_backward_reference(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_
     return dq, dk, dv
 
 
-def _bind() -> ctypes.CDLL:
-    lib, _ = _build.library("flash_backward")
-    for name in ("tpu_flash_block_backward_f32", "tpu_flash_block_backward_bf16"):
-        fn = getattr(lib, name)
-        if fn.argtypes is None:
-            fn.argtypes = [
-                *[ctypes.c_void_p] * 9,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                ctypes.c_void_p,
-            ]
-            fn.restype = ctypes.c_int
-    return lib
-
-
 def _check(q, k, v, do, lse, dsum, dq, dk, dv) -> None:
     _check_qkv(q, k, v, dtypes=(torch.bfloat16, torch.float32))
     bh, tq, d = q.shape
@@ -137,7 +119,6 @@ def flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causa
     card the CUDA kernels (current stream, not synchronized); on the CPU the
     plain version, copied into the accumulators.
     """
-    global backward_launches
     _check(q, k, v, do, lse, dsum, dq, dk, dv)
     window = _check_window(causal, window)
     if not _on_card(q):
@@ -150,17 +131,10 @@ def flash_block_backward(q, k, v, do, lse, dsum, dq, dk, dv, q_off, k_off, causa
     if window and q.dtype != torch.float32:
         raise ValueError("the bf16 block backward has no sliding window")
     bh, tq, d = q.shape
-    lib = _bind()
-    entry = (lib.tpu_flash_block_backward_f32 if q.dtype == torch.float32
-             else lib.tpu_flash_block_backward_bf16)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = entry(
-            *(t.data_ptr() for t in (q, k, v, do, lse, dsum, dq, dk, dv)),
-            bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)), window,
-            1.0 / math.sqrt(d), stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash block backward kernel launch failed: cudaError {rc}")
-    backward_launches += 1
+    f32 = q.dtype == torch.float32
+    band = (window,) if f32 else ()
+    _build.launch("tpu_flash_block_backward_f32" if f32 else "tpu_flash_block_backward_bf16",
+                  q.device, *(t.data_ptr() for t in (q, k, v, do, lse, dsum, dq, dk, dv)),
+                  bh, tq, k.shape[1], d, int(q_off), int(k_off), int(bool(causal)), *band,
+                  1.0 / math.sqrt(d))
     return dq, dk, dv

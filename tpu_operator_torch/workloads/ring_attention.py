@@ -44,6 +44,7 @@ from tpu_operator_torch.kernels.flash_attention import (  # noqa: F401  (re-expo
     online_softmax_block_update,
     visible,
 )
+from tpu_operator_torch.kernels import _build
 from tpu_operator_torch.kernels.flash_backward import flash_block_backward
 from tpu_operator_torch.obs import flight
 from tpu_operator_torch.workloads import _ranks, resolve_device
@@ -286,12 +287,11 @@ def ring_attention_remat(q, k, v, causal: bool, use_kernel: bool = False,
 
 def remat_launches() -> dict:
     """Launches so far in this process of the two kernels the training path
-    runs on f32: B3's f32 entry and B4."""
-    from tpu_operator_torch.kernels import flash_attention as fa
-    from tpu_operator_torch.kernels import flash_backward as fb
-
-    return {"flash_block_update_f32": fa.block_update_f32_launches,
-            "flash_block_backward": fb.backward_launches}
+    runs on f32: B3's f32 entry and B4 (either of its entries)."""
+    n = _build.launches()
+    return {"flash_block_update_f32": n["tpu_flash_block_update_f32"],
+            "flash_block_backward": (n["tpu_flash_block_backward_f32"]
+                                     + n["tpu_flash_block_backward_bf16"])}
 
 
 def remat_route(device: torch.device, use_kernel: bool) -> str:
@@ -308,8 +308,6 @@ def _ring_rank(rank: int, n: int, device: torch.device, qkv, causal: bool,
     run the ring, hold my rows against the single-device reference; the max
     error is the max over every rank.  With ``out_path``, rank 0 saves the
     gathered output there (.npy, f32)."""
-    from tpu_operator_torch.kernels import flash_attention as fa
-
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16).to(device) for x in qkv)
     b, t, h, d = q.shape
     if t % n:
@@ -318,7 +316,7 @@ def _ring_rank(rank: int, n: int, device: torch.device, qkv, causal: bool,
     rows = slice(rank * block, (rank + 1) * block)
     q_s, k_s, v_s = (x[:, rows].contiguous() for x in (q, k, v))
 
-    launches = fa.block_update_launches
+    launches = _build.launches()["tpu_flash_block_update_bf16"]
     t0 = time.perf_counter()
     out = ring_attention_sharded(q_s, k_s, v_s, causal, use_kernel)
     ref = reference_attention(q, k, v, causal)[:, rows]
@@ -348,7 +346,7 @@ def _ring_rank(rank: int, n: int, device: torch.device, qkv, causal: bool,
         "time_s": dt,
         "backend": device.type,
         # kernel B3 launches in rank 0's process during this run
-        "launches": fa.block_update_launches - launches,
+        "launches": _build.launches()["tpu_flash_block_update_bf16"] - launches,
     }
 
 

@@ -133,7 +133,7 @@ def run(
     or on a card one that differs from its plain version) — cache trouble
     is never a failure, it just costs builds.  ``build`` and ``load`` are
     :func:`~.compile_cache.compile_or_fetch`'s."""
-    from tpu_operator_torch.kernels import vector_add as va
+    from tpu_operator_torch.kernels import _build
     from tpu_operator_torch.obs import flight
 
     device = resolve_device(device)
@@ -181,7 +181,7 @@ def run(
 
     ok = True
     results: dict[str, dict] = {}
-    launches = va.launches
+    launches = _build.launches()["tpu_vector_add"]
     for name, program in programs.items():
         out, plain = program(device)
         value, plain_value = float(out), float(plain)
@@ -214,7 +214,7 @@ def run(
         "results": results,
         "libraries": libs,
         # kernel B1's launches in this run (the vector-add program's)
-        "launches": {"vector_add": va.launches - launches},
+        "launches": {"vector_add": _build.launches()["tpu_vector_add"] - launches},
         "backend": device.type,
     }
 
